@@ -5,19 +5,30 @@
 
 Phases (any failure exits non-zero):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the four kernels from monosdf_torch/csrc with nvcc for sm_90a;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes of one 1024-ray chunk of the bench's ScanNet-MLP model, in
-   float32 and bfloat16, and time kernel and plain version (CUDA events);
+2. build the six kernels from monosdf_torch/csrc with nvcc for sm_90a, one
+   nvcc per source, all at once;
+3. hold each kernel against its plain PyTorch version on the card, in
+   float32 and bfloat16, and time kernel and plain version (CUDA events):
+   the forwards at the shapes of one 1024-ray render chunk of the bench's
+   ScanNet-MLP model, K2's training forward (clamp_rows, flag, saved Z) and
+   K2b at the training step's 104,448 points, K3b at its 100,352 samples;
 4. render 4 synthetic 64x64 views through cli/eval.py at full width
    (geometric init plus seeded noise) with the kernels, counting launches
    (K1 = K4 = 5 and K2 = K3 = 1 per chunk); render every chunk again with
    each kernel's plain version in its wrapper's place, once through the
    sampler and once at the kernel render's own samples (render_samples),
    and compare; time one chunk both ways;
-5. profile that chunk (torch.profiler): device time per kernel, busy share;
-6. print a ``render`` JSON line, the ``kernels`` JSON line, the card line
-   (nvidia-smi's name and power limit), and last the result line.
+5. train: 3 warm-up and 20 timed steps of cli/train.py's step at full
+   width in bf16 on distinct 1024-ray batches, counting launches (K1 = K4
+   = 5, K2f = K3f = K2b = K3b = 1 per step), failing on a non-finite loss
+   or gradient; then, at one batch with the samples and eikonal points
+   fixed, the loss and every parameter gradient with the kernels and with
+   each kernel's plain version in its place, compared, in bf16 and float32;
+6. profile the render chunk and one training step (torch.profiler): device
+   time per kernel, busy share;
+7. print a ``render`` and a ``train`` JSON line, the ``kernels`` JSON line,
+   the card line (nvidia-smi's name and power limit), and last the result
+   line.
 """
 
 from __future__ import annotations
@@ -43,8 +54,14 @@ TPU_KERNELS = {
     "sampler_machinery": "monosdf_tpu/ops/pallas_sampler.py:147",
     "sdf_grad": "monosdf_tpu/ops/pallas_sdf_grad.py:414",
     "radiance_norm": "monosdf_tpu/ops/pallas_rgb_grad.py:708",
+    "sdf_grad_bwd": "monosdf_tpu/ops/pallas_sdf_grad.py:713",
+    "radiance_norm_bwd": "monosdf_tpu/ops/pallas_rgb_grad.py:889",
 }
-PER_CHUNK = {"sdf_mlp": 5, "sampler_machinery": 5, "sdf_grad": 1, "radiance_norm": 1}
+PER_CHUNK = {"sdf_mlp": 5, "sampler_machinery": 5, "sdf_grad": 1, "radiance_norm": 1,
+             "sdf_grad_bwd": 0, "radiance_norm_bwd": 0}
+PER_STEP = {"sdf_mlp": 5, "sampler_machinery": 5, "sdf_grad": 1, "radiance_norm": 1,
+            "sdf_grad_bwd": 1, "radiance_norm_bwd": 1}
+WARMUP_STEPS, TIMED_STEPS = 3, 20
 # stated tolerances, kernel vs plain version on the card: err <= atol + rtol * max|plain|;
 # bf16: a rounding that lands on the neighbouring bf16 value (ulp 2^-7 at 1)
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 2e-2)}
@@ -70,6 +87,22 @@ RENDER_LIKE_MAX_ABS = {
     "float32": {"rgb_values": 1e-4, "depth_values": 2e-3, "normal_map": 1e-2},
     "bfloat16": {"rgb_values": 1e-3, "depth_values": 2e-3, "normal_map": 5e-2},
 }
+# K2b and K3b parameter gradients, kernel vs plain version: each is a sum
+# over ~4e5 (K2b) or ~1e5 (K3b) rows, so per tensor err <= atol + rtol *
+# max|plain|. float32: the repo's kernel parameter-grad bar, sums in another
+# order; bf16: the operands are bf16 in both and the float32 sums run in
+# another order, so a rounding lands on the neighbouring bf16 value (2^-8
+# relative) now and then. K3b's dg uses the same bar, its df TOL.
+GRAD_TOL = {"float32": (2e-4, 1e-3), "bfloat16": (1e-2, 2e-2)}
+# the like-for-like training step (kernels vs plain versions at fixed
+# samples): float32 element by element, |a - b| <= atol + rtol * |b|, the
+# JAX package's bar for kernel parameter gradients (ROADMAP.md Tolerances;
+# tests/test_pallas_sdf_grad.py:91-93); bf16 per tensor, |a - b| <= atol +
+# rtol * max|plain|: bf16 activations, Z and cotangents that land on the
+# neighbouring bf16 value (2^-8 relative) in one path and not the other, two
+# bf16 ulps (2^-7) of the tensor's largest entry bound their sum. The loss:
+# relative 1e-5 (float32) and 1e-3 (bf16).
+STEP_TOL = {"float32": (2e-4, 1e-3, 1e-5), "bfloat16": (1e-4, 2e-2, 1e-3)}
 PROFILE_CHUNKS = 3
 
 def fail(msg: str):
@@ -122,11 +155,17 @@ def perturbed_model(cfg, device, scale: float = 0.01):
     return model
 
 
+_KERNEL_FNS: dict = {}  # (module, name) -> the kernel wrapper there, saved at the first swap
+
+
 def use_plain_versions(on: bool):
     """Point the kernel path's call sites at each kernel's plain version
-    (``on``) or back at the kernel wrappers. A wrapper launches its kernel on
-    a CUDA tensor, so this is how the card renders the kernel path's own
-    composition with the plain versions."""
+    (``on``) or back at the kernel wrappers: the sweeps' K1 and the
+    sampler's K4, and inside the K2 and K3 modules the forward that both the
+    no-grad call and the autograd Function run, and the backward that the
+    Function's backward runs. A wrapper launches its kernel on a CUDA
+    tensor, so this is how the card runs the kernel path's own composition
+    with the plain versions."""
     from monosdf_torch.kernels import radiance_norm as k3
     from monosdf_torch.kernels import sampler_machinery as k4
     from monosdf_torch.kernels import sdf_grad as k2
@@ -134,15 +173,16 @@ def use_plain_versions(on: bool):
     from monosdf_torch.models import fields
     from monosdf_torch.ops import sampler
 
-    for mod, name, kernel, plain in (
+    for mod, name, plain in (
         # the sweeps hand K1 its packed weights, which the plain version has no use for
-        (fields, "sdf_mlp", k1.sdf_mlp,
-         lambda *a, packed=None, **kw: k1.sdf_mlp_plain(*a, **kw)),
-        (fields, "sdf_mlp_with_grad", k2.sdf_mlp_with_grad, k2.sdf_mlp_with_grad_plain),
-        (fields, "radiance_norm", k3.radiance_norm, k3.radiance_norm_plain),
-        (sampler, "sampler_iter_machinery", k4.sampler_iter_machinery,
-         k4.sampler_iter_machinery_plain),
+        (fields, "sdf_mlp", lambda *a, packed=None, **kw: k1.sdf_mlp_plain(*a, **kw)),
+        (sampler, "sampler_iter_machinery", k4.sampler_iter_machinery_plain),
+        (k2, "_forward", k2.sdf_mlp_with_grad_plain),
+        (k2, "sdf_mlp_with_grad_bwd", k2.sdf_mlp_with_grad_bwd_plain),
+        (k3, "_forward", k3.radiance_norm_plain),
+        (k3, "radiance_norm_bwd", k3.radiance_norm_bwd_plain),
     ):
+        kernel = _KERNEL_FNS.setdefault((mod, name), getattr(mod, name))
         setattr(mod, name, plain if on else kernel)
 
 
@@ -278,6 +318,131 @@ def kernel_checks(model, cfg, dev):
     return results
 
 
+def _ratio(pairs, atol, rtol):
+    """Worst err / (atol + rtol * max|plain|) over (kernel, plain) pairs,
+    and the largest max abs err."""
+    worst, big = 0.0, 0.0
+    for a, b in pairs:
+        if not torch.isfinite(a.float()).all():
+            fail(f"non-finite kernel output of shape {tuple(a.shape)}")
+        err, scale = max_err(a, b)
+        worst, big = max(worst, err / (atol + rtol * scale)), max(big, err)
+    return worst, big
+
+
+def training_kernel_checks(model, cfg, dev, results):
+    """Phase 3 at the training step's shapes: K2f's training variant
+    (clamp_rows, flag, saved Z) and K2b at the step's n_main + 4R points
+    (the folded eikonal batch unclamped), K3b at its n_main samples, each
+    against its plain version, in float32 and bf16; times and bounds."""
+    from monosdf_torch.kernels import radiance_norm as k3
+    from monosdf_torch.kernels import sdf_grad as k2
+    from monosdf_torch.models.fields import effective_linear_weights
+    from monosdf_torch.ops.embedder import positional_encoding
+
+    rng = np.random.default_rng(SEED + 2)
+    imp = cfg.implicit
+    n_main = CHUNK * cfg.sampler.total_samples
+    N = n_main + 4 * CHUNK
+    F = imp.feature_vector_size
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    ok = True
+    with torch.no_grad():
+        ws, bs = effective_linear_weights(model.implicit)
+        rws, rbs = effective_linear_weights(model.rendering)
+        x = t(rng.uniform(-1.1, 1.1, (N, 3)))  # the cube's corners lie outside the 1.1 sphere
+        cots = [t(rng.normal(size=(N, k))) for k in (1, F, 3)]
+        g = t(rng.normal(size=(n_main, 3)))
+        sv = torch.cat([x[:n_main], positional_encoding(t(rng.normal(size=(n_main, 3))), 4)], -1)
+        feat = t(rng.normal(size=(n_main, F)))
+        co, cn = t(rng.normal(size=(n_main, 3))), t(rng.normal(size=(n_main, 3)))
+
+        def fwd(d, plain=False):
+            fn = k2.sdf_mlp_with_grad_plain if plain else k2.sdf_mlp_with_grad
+            return fn(ws, bs, x, imp.multires, imp.skip_in, d, imp.sdf_bounding_sphere,
+                      imp.sphere_scale, n_main, True)
+
+        def k2b(d, zs, flag, plain=False):
+            fn = k2.sdf_mlp_with_grad_bwd_plain if plain else k2.sdf_mlp_with_grad_bwd
+            dws, dbs = fn(ws, bs, x, zs, *cots, imp.multires, imp.skip_in, d, flag)
+            return [*dws, *dbs]
+
+        def k3b(d, plain=False):
+            fn = k3.radiance_norm_bwd_plain if plain else k3.radiance_norm_bwd
+            dws, dbs, dg, df = fn(rws, rbs, g, sv, feat, co, cn, d)
+            return [*dws, *dbs, dg], df
+
+        errs = {"sdf_grad_train": {}, "sdf_grad_bwd": {}, "radiance_norm_bwd": {}}
+        for dname, d in (("float32", None), ("bfloat16", torch.bfloat16)):
+            out, ref = fwd(d), fwd(d, plain=True)
+            torch.cuda.synchronize()
+            # where the take-MLP select flips (an SDF within a rounding of
+            # the sphere's), sdf and grad take the other branch: count those
+            same = (out[3] == ref[3])[:, 0]
+            flips = int((~same).sum())
+            max_flips = 1e-4 * N if d is None else 1e-3 * N
+            r_f, e_f = _ratio([(out[0][same], ref[0][same]), (out[1], ref[1]),
+                               (out[2][same], ref[2][same]), *zip(out[4], ref[4])], *TOL[dname])
+            zs, flag = out[4], out[3]
+            del ref
+            r_b, e_b = _ratio(zip(k2b(d, zs, flag), k2b(d, zs, flag, plain=True)),
+                              *GRAD_TOL[dname])
+            (gk, dfk), (gp, dfp) = k3b(d), k3b(d, plain=True)
+            r_3, e_3 = _ratio(zip(gk, gp), *GRAD_TOL[dname])
+            r_3f, e_3f = _ratio([(dfk, dfp)], *TOL[dname])
+            for name, r, e, extra in (("sdf_grad_train", r_f, e_f, f"; flag flips {flips}"),
+                                      ("sdf_grad_bwd", r_b, e_b, ""),
+                                      ("radiance_norm_bwd", max(r_3, r_3f), max(e_3, e_3f), "")):
+                good = r <= 1.0 and (name != "sdf_grad_train" or flips <= max_flips)
+                print(f"check {name:17s} {dname:8s} max_abs_err {e:.3e}; worst err / tolerance "
+                      f"{r:.3e}{extra} {'ok' if good else 'FAIL'}", flush=True)
+                ok = ok and good
+                errs[name][dname] = e
+            del out, zs
+        results["sdf_grad"].update(max_abs_err_train=errs["sdf_grad_train"]["bfloat16"],
+                                   max_abs_err_train_f32=errs["sdf_grad_train"]["float32"])
+        for name in ("sdf_grad_bwd", "radiance_norm_bwd"):
+            results[name] = {"max_abs_err": errs[name]["bfloat16"],
+                             "max_abs_err_f32": errs[name]["float32"]}
+
+        # times at bf16, per launch
+        bf = torch.bfloat16
+        _, _, _, flag, zs = fwd(bf)
+        results["sdf_grad"].update(ms_train=cuda_ms(lambda: fwd(bf), reps=5),
+                                   plain_ms_train=cuda_ms(lambda: fwd(bf, True), reps=2, warmup=1))
+        results["sdf_grad_bwd"].update(
+            ms=cuda_ms(lambda: k2b(bf, zs, flag), reps=5),
+            plain_ms=cuda_ms(lambda: k2b(bf, zs, flag, True), reps=2, warmup=1))
+        results["radiance_norm_bwd"].update(ms=cuda_ms(lambda: k3b(bf)),
+                                            plain_ms=cuda_ms(lambda: k3b(bf, True), reps=3,
+                                                             warmup=1))
+        z_bytes = nbytes(*zs)
+        del zs
+
+    # bounds: the FLOP each function needs at these shapes, and its bytes
+    # (each input read once, each output written once)
+    kin_l, n_l = ws[-1].shape
+    fwd_flops = mlp_flops(ws[:-1], 4 * N) + 2.0 * N * kin_l * n_l + 2.0 * 3 * N * kin_l
+    prop_flops = mlp_flops(ws[1:-1], 4 * N) + 2.0 * N * kin_l * n_l + 2.0 * 3 * N * kin_l
+    w_bytes = nbytes(*ws, *bs)
+    k2f_bytes = N * (3 * 4 + 4 + F * 2 + 3 * 4 + 4) + z_bytes + w_bytes
+    k2b_bytes = N * (3 * 4 + (1 + F + 3) * 2 + 4) + z_bytes + 2 * w_bytes
+    n0 = rws[0].shape[1]
+    k3b_flops = (mlp_flops(rws[:-1], n_main) + mlp_flops(rws, n_main) + mlp_flops(rws[1:], n_main)
+                 + 2.0 * n_main * n0 * (3 + F))
+    k3b_bytes = (n_main * (3 * 4 + sv.shape[1] * 2 + F * 2 + 3 * 2 + 3 * 2 + 3 * 4 + F * 2)
+                 + 2 * nbytes(*rws, *rbs))
+    b, by = bound_ms(fwd_flops, k2f_bytes, H100_BF16_FLOPS)
+    results["sdf_grad"].update(bound_ms_train=b, bound_by_train=by)
+    for name, fl, nb in (("sdf_grad_bwd", fwd_flops + prop_flops, k2b_bytes),
+                         ("radiance_norm_bwd", k3b_flops, k3b_bytes)):
+        b, by = bound_ms(fl, nb, H100_BF16_FLOPS)
+        results[name].update(bound_ms=b, bound_by=by)
+    print(f"train-shape kernels (bf16, ms per launch): {json.dumps({k: {kk: v for kk, v in r.items() if 'ms' in kk or 'bound' in kk} for k, r in results.items() if k in ('sdf_grad', 'sdf_grad_bwd', 'radiance_norm_bwd')})}", flush=True)
+    if not ok:
+        fail("a training kernel disagrees with its plain version beyond the stated tolerance")
+
+
 def chunks_of(frames) -> list:
     """The 1024-ray chunks of every frame, as cli/eval.py cuts them."""
     out = []
@@ -371,44 +536,181 @@ def render_phase(dev):
     return info, runs
 
 
-def profile_phase(runs, info):
-    """Phase 5: device time per kernel over PROFILE_CHUNKS renders of the
-    timed chunk (torch.profiler), and the device's busy share."""
+def _loss_and_grads(model, cfg, batch, z_vals, eik):
+    """The MonoSDF loss and every parameter gradient at fixed samples and
+    eikonal points."""
+    from monosdf_torch.losses import LossConfig, monosdf_loss
+    from monosdf_torch.models.monosdf import render_samples
+
+    model.zero_grad(set_to_none=True)
+    out = render_samples(model, cfg, batch["rays"], z_vals, eik_points=eik)
+    loss = monosdf_loss(LossConfig(), out, batch["gt"])["loss"]
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def train_phase(dev):
+    """Phase 5: cli/train.py's step at full width in bf16 (warm-up, timed
+    steps, launches per step, loss trajectory), the plain versions' step
+    time, and the like-for-like step check in bf16 and float32."""
+    from monosdf_torch.cli.eval import bench_mlp_config
+    from monosdf_torch.cli.train import make_trainer, ray_batches
+    from monosdf_torch.data.synthetic import make_synthetic_sphere_scene
     from monosdf_torch.kernels import build
-    from monosdf_torch.models.monosdf import render_rays
+    from monosdf_torch.models.monosdf import init_monosdf, sample_rays
+
+    scene = make_synthetic_sphere_scene(n_images=4, img_res=64)
+    batches = ray_batches(scene, np.random.default_rng(SEED), WARMUP_STEPS + TIMED_STEPS + 1,
+                          CHUNK, dev)
+    cfg = bench_mlp_config("bfloat16")
+    model = init_monosdf(cfg, seed=SEED, device=dev)
+    step = make_trainer(model, cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for b in batches[:WARMUP_STEPS]:
+        step(model, b, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the main path: TIMED_STEPS steps on distinct batches, launches counted
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [step(model, b, generator=gen)
+               for b in batches[WARMUP_STEPS:WARMUP_STEPS + TIMED_STEPS]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(build.launches)
+    expect = {k: v * TIMED_STEPS for k, v in PER_STEP.items()}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    ms_step = dt / TIMED_STEPS * 1e3
+    losses = [float(m["loss"]) for m in metrics]
+    print(f"train bf16: {TIMED_STEPS} steps after {WARMUP_STEPS} warm-up in {dt:.3f} s, "
+          f"{ms_step:.3f} ms/step ({CHUNK / ms_step * 1e3:.1f} rays/s); launches {counts} "
+          f"(expected {expect}); peak memory {peak_gb:.2f} GiB", flush=True)
+    print(f"train bf16: loss {[round(v, 5) for v in losses]}", flush=True)
+    print(f"train bf16: psnr {[round(float(m['psnr']), 3) for m in metrics]}; beta "
+          f"{float(metrics[-1]['beta']):.6f}", flush=True)
+    if counts != expect:
+        fail(f"training launch counts {counts} != {expect}")
+    if not all(math.isfinite(v) for v in losses):
+        fail("a training loss is not finite")
+    for n, p in model.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all() or not torch.isfinite(p).all():
+            fail(f"{n}: gradient or parameter not finite after the timed steps")
+
+    # the plain versions' step, for scale (not the main path)
+    use_plain_versions(True)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for b in batches[:2]:
+        step(model, b, generator=gen)
+    torch.cuda.synchronize()
+    plain_ms_step = (time.perf_counter() - t0) / 2 * 1e3
+    use_plain_versions(False)
+    if any(build.launches.values()):
+        fail(f"the plain-version steps launched kernels: {build.launches}")
+    info = {"ms_per_step": ms_step, "rays_per_s": CHUNK / ms_step * 1e3, "steps": TIMED_STEPS,
+            "warmup": WARMUP_STEPS, "launches": counts, "launches_per_step": PER_STEP,
+            "loss": losses, "peak_mem_gib": peak_gb, "plain_ms_per_step": plain_ms_step}
+    print(f"train bf16: plain versions {plain_ms_step:.3f} ms/step", flush=True)
+
+    # like for like: one batch, the kernel sampler's samples and eikonal
+    # points fixed, the loss and every gradient with the kernels and with
+    # each kernel's plain version in its place
+    batch = batches[-1]
+    for dname in ("bfloat16", "float32"):
+        cfg_d = bench_mlp_config(dname)
+        model_d = perturbed_model(cfg_d, dev)
+        z_vals, eik = sample_rays(model_d, cfg_d, batch["rays"], True,
+                                  generator=torch.Generator(device=dev).manual_seed(SEED + 3))
+        build.reset_launch_counts()
+        lk, gk = _loss_and_grads(model_d, cfg_d, batch, z_vals, eik)
+        counts_k = dict(build.launches)
+        use_plain_versions(True)
+        build.reset_launch_counts()
+        lp, gp = _loss_and_grads(model_d, cfg_d, batch, z_vals, eik)
+        use_plain_versions(False)
+        if any(build.launches.values()):
+            fail(f"the plain-version step launched kernels: {build.launches}")
+        atol, rtol, ltol = STEP_TOL[dname]
+        worst, worst_name = 0.0, ""
+        for n in gk:
+            a, b = gk[n].float(), gp[n].float()
+            if not torch.isfinite(a).all():
+                fail(f"step check {dname}: gradient {n} not finite")
+            if dname == "float32":
+                r = float(((a - b).abs() / (atol + rtol * b.abs())).max())
+            else:
+                r = float((a - b).abs().max()) / (atol + rtol * float(b.abs().max()))
+            if r > worst:
+                worst, worst_name = r, n
+        l_ratio = abs(lk - lp) / (ltol * abs(lp) + 1e-30)
+        print(f"step check {dname}: loss kernels {lk:.7f} plain {lp:.7f} (diff / tolerance "
+              f"{l_ratio:.3e}); worst gradient err / tolerance {worst:.3e} ({worst_name}); "
+              f"launches {counts_k}", flush=True)
+        expect_k = {k: (0 if k in ("sdf_mlp", "sampler_machinery") else 1) for k in PER_STEP}
+        if counts_k != expect_k:
+            fail(f"step check launches {counts_k} != {expect_k}")
+        if worst > 1.0 or l_ratio > 1.0:
+            fail(f"step check {dname}: kernels vs plain versions beyond the stated tolerance")
+        info[f"step_check_{dname}"] = {"loss_kernels": lk, "loss_plain": lp,
+                                       "worst_grad_ratio": worst, "worst_param": worst_name}
+        del model_d, gk, gp
+    return info, (model, cfg, step, batches[0], gen)
+
+
+def _profile(fn, reps: int, what: str) -> dict:
+    """Device time per kernel over ``reps`` calls of fn (torch.profiler), the
+    wall time per call by CUDA events, and the device's busy share."""
+    from monosdf_torch.kernels import build
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for dname, (model, cfg, rays) in runs.items():
-        render_rays(model, cfg, rays)
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
         torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with torch.profiler.profile(activities=acts) as prof:
-            start.record()
-            for _ in range(PROFILE_CHUNKS):
-                render_rays(model, cfg, rays)
-            end.record()
-            torch.cuda.synchronize()
-        ms_chunk = start.elapsed_time(end) / PROFILE_CHUNKS
-        # the device's own events only: an operator's entry repeats the time
-        # of the kernels it launched
-        per_name = {e.key: e.self_device_time_total / 1e3 / PROFILE_CHUNKS  # from us
-                    for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA}
-        busy = sum(per_name.values())
-        if busy <= 0:
-            fail("torch.profiler recorded no device time")
-        kern = {n: sum(v for k, v in per_name.items() if f"{n}_kernel" in k)
-                for n in build.SOURCES}
-        other: dict = {}  # by the first 60 characters of the kernel's name
-        for k, v in per_name.items():
-            if not any(f"{n}_kernel" in k for n in build.SOURCES):
-                other[k[:60]] = other.get(k[:60], 0.0) + v
-        info[dname].update(profile={
-            "ms_per_chunk": ms_chunk, "device_busy_ms": busy, "busy_share": busy / ms_chunk,
-            "kernels_ms": kern, "other_ms": busy - sum(kern.values()),
-            "other_top_ms": dict(sorted(other.items(), key=lambda kv: -kv[1])[:6]),
-        })
-        print(f"profile {dname}: {json.dumps(info[dname]['profile'])}", flush=True)
+    ms = start.elapsed_time(end) / reps
+    # the device's own events only: an operator's entry repeats the time of
+    # the kernels it launched
+    per_name = {e.key: e.self_device_time_total / 1e3 / reps  # from us
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+    busy = sum(per_name.values())
+    if busy <= 0:
+        fail(f"torch.profiler recorded no device time ({what})")
+    # reduce_partials: the second launch of both backward kernels (their
+    # blocks' dW partials summed), counted on its own
+    names = [f"{n}_kernel" for n in build.SOURCES] + ["reduce_partials"]
+    kern = {n.removesuffix("_kernel"): sum(v for k, v in per_name.items() if n in k)
+            for n in names}
+    other: dict = {}  # by the first 60 characters of the kernel's name
+    for k, v in per_name.items():
+        if not any(n in k for n in names):
+            other[k[:60]] = other.get(k[:60], 0.0) + v
+    return {"ms": ms, "device_busy_ms": busy, "busy_share": busy / ms, "kernels_ms": kern,
+            "other_ms": busy - sum(kern.values()),
+            "other_top_ms": dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])}
+
+
+def profile_phase(runs, info, train_run, train_info):
+    """Phase 6: device time per kernel over PROFILE_CHUNKS renders of the
+    timed chunk and over one training step (torch.profiler), and the
+    device's busy share."""
+    from monosdf_torch.models.monosdf import render_rays
+
+    for dname, (model, cfg, rays) in runs.items():
+        prof = _profile(lambda: render_rays(model, cfg, rays), PROFILE_CHUNKS, f"render {dname}")
+        prof["ms_per_chunk"] = prof.pop("ms")
+        info[dname].update(profile=prof)
+        print(f"profile {dname}: {json.dumps(prof)}", flush=True)
+    model, cfg, step, batch, gen = train_run
+    prof = _profile(lambda: step(model, batch, generator=gen), 1, "train step")
+    prof["ms_per_step"] = prof.pop("ms")
+    train_info["profile"] = prof
+    print(f"profile train bf16: {json.dumps(prof)}", flush=True)
 
 
 def main(argv):
@@ -437,31 +739,37 @@ def main(argv):
     cfg = bench_mlp_config("bfloat16")
     model = perturbed_model(cfg, dev)
     results = kernel_checks(model, cfg, dev)
+    training_kernel_checks(model, cfg, dev, results)
+    del model
     if "--kernels" in argv:
         print(json.dumps(results))
         return
     info, runs = render_phase(dev)
-    profile_phase(runs, info)
+    train_info, train_run = train_phase(dev)
+    profile_phase(runs, info, train_run, train_info)
 
     kernels = []
-    for name, r in results.items():
+    for name in build.SOURCES:
+        r = results[name]
+        n_render, n_train = info["launches"][name], train_info["launches"][name]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"monosdf_torch/csrc/{name}.cu",
             "replaces": TPU_KERNELS[name],
-            "launches": info["launches"][name],
+            # the main paths' runs: the bf16 render (16 chunks) and the
+            # timed training steps, each counted from 0
+            "launches": n_render + n_train,
+            "launches_render": n_render,
+            "launches_train": n_train,
             "launches_per_chunk": PER_CHUNK[name],
-            "max_abs_err": r["max_abs_err"],
-            "max_abs_err_f32": r["max_abs_err_f32"],
-            "ms": r["ms"],
+            "launches_per_step": PER_STEP[name],
+            **{k: v for k, v in r.items() if k not in ("launches",)},
             "kernel_ms": r["ms"],
-            "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"],
             "library_ms": None,
         })
     print(json.dumps({"render": info}))
+    print(json.dumps({"train": train_info}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

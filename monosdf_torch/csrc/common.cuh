@@ -1,5 +1,6 @@
-// Shared pieces of the MLP kernels (sdf_mlp.cu, sdf_grad.cu, radiance_norm.cu)
-// and the C-interface helpers of every kernel library.
+// Shared pieces of the MLP kernels (sdf_mlp.cu, sdf_grad.cu, radiance_norm.cu
+// and the backward kernels sdf_grad_bwd.cu, radiance_norm_bwd.cu) and the
+// C-interface helpers of every kernel library.
 //
 // The MLP kernels keep one tile of activations (TILE_M rows) in shared
 // memory and stream each layer's weights through shared memory KT rows at a
@@ -189,6 +190,139 @@ __device__ __forceinline__ void prep_first(float* cur, const float* X0, int d0, 
 // dynamic shared memory of an MLP kernel: X0, two activation buffers, one
 // weight stage and the narrow-output scratch
 constexpr size_t MLP_SMEM_FLOATS = TILE_M * LD0 + 2 * TILE_M * LDA + KT * TILE_N + TILE_M * 4;
+
+// -- the SDF MLP with its spatial gradient (sdf_grad.cu, sdf_grad_bwd.cu) --
+
+constexpr int PTS = TILE_M / 4;  // points per tile: a primal row and 3 tangent rows each
+
+// Per-layer pointers of the saved pre-activations Z, each (4, N, nout_l). A
+// kernel takes it as a __grid_constant__ parameter, so indexing it by layer
+// reads the parameter space instead of a local copy.
+struct ZPtrs {
+  void* p[MK_MAX_LAYERS];
+};
+
+// xs <- the tile's PTS points (zero past N); X0 <- their embedding
+// [x, sin(2^f x), cos(2^f x), ...] (row p) and its tangent along axis k
+// (row (k+1)*PTS + p), as TPU kernel_pe computes them.
+__device__ __forceinline__ void load_pe_tile(const float* __restrict__ x, int N, int p0,
+                                             int multires, float (*xs)[3], float* X0) {
+  const int tid = threadIdx.x;
+  const int d0 = 3 * (1 + 2 * multires);
+  if (tid < PTS * 3) {
+    const int p = tid / 3, k = tid - p * 3;
+    xs[p][k] = p0 + p < N ? x[(size_t)(p0 + p) * 3 + k] : 0.0f;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < PTS * LD0; idx += THREADS) {
+    const int p = idx / LD0, c = idx - p * LD0;
+    float e = 0.0f, t[3] = {0.0f, 0.0f, 0.0f};
+    if (c < 3) {
+      e = xs[p][c];
+      t[c] = 1.0f;
+    } else if (c < d0) {
+      const int f = (c - 3) / 6, part = ((c - 3) % 6) / 3, k = (c - 3) % 3;
+      const float fr = (float)(1 << f);
+      const float v = fr * xs[p][k];
+      const float sv = sinf(v), cv = cosf(v);
+      e = part == 0 ? sv : cv;
+      t[k] = part == 0 ? fr * cv : -fr * sv;
+    }
+    X0[p * LD0 + c] = e;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) X0[((k + 1) * PTS + p) * LD0 + c] = t[k];
+  }
+}
+
+// -- weight gradients of the backward kernels --------------------------------
+//
+// A backward block accumulates its rows' dW = A^T CT into its own partial,
+// a copy of the packed-weight layout in device memory; reduce_partials sums
+// the blocks' partials in a fixed order afterwards, so a run's gradients do
+// not depend on which block finished first.
+
+// dst[k * ldd + col0 + c] += sum_{r < rows} A[r * lda + k] * CT[r * ldc + col0 + c]
+// for k < kin, c < ncols. Each pass covers 64 k by 256 c; lane tx owns the
+// columns tx + 32 j, so the read-modify-write of dst is coalesced.
+__device__ __forceinline__ void accum_dw(const float* __restrict__ A, int lda,
+                                         const float* __restrict__ CT, int ldc, int rows, int kin,
+                                         int col0, int ncols, float* __restrict__ dst, int ldd) {
+  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
+  for (int c0 = 0; c0 < ncols; c0 += TILE_N) {
+    for (int k0 = 0; k0 < kin; k0 += 64) {
+      float acc[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+#pragma unroll 2
+      for (int r = 0; r < rows; ++r) {
+        float a[8], b[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int k = k0 + ty * 8 + i;
+          a[i] = k < kin ? A[r * lda + k] : 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = c0 + tx + 32 * j;
+          b[j] = c < ncols ? CT[r * ldc + col0 + c] : 0.0f;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int k = k0 + ty * 8 + i;
+        if (k < kin) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = c0 + tx + 32 * j;
+            if (c < ncols) dst[(size_t)k * ldd + col0 + c] += acc[i][j];
+          }
+        }
+      }
+    }
+  }
+}
+
+// The same for one column col: one thread per k.
+__device__ __forceinline__ void accum_dw_col(const float* __restrict__ A, int lda,
+                                             const float* __restrict__ CT, int ldc, int rows,
+                                             int kin, int col, float* __restrict__ dst, int ldd) {
+  for (int k = threadIdx.x; k < kin; k += THREADS) {
+    float s = 0.0f;
+    for (int r = 0; r < rows; ++r) s = fmaf(A[r * lda + k], CT[r * ldc + col], s);
+    dst[(size_t)k * ldd + col] += s;
+  }
+}
+
+// Bias gradient: dst[c] += sum_{r < rows} CT[r * ldc + c] for c < ncols.
+__device__ __forceinline__ void accum_db(const float* __restrict__ CT, int ldc, int rows,
+                                         int ncols, float* __restrict__ dst) {
+  for (int c = threadIdx.x; c < ncols; c += THREADS) {
+    float s = 0.0f;
+    for (int r = 0; r < rows; ++r) s += CT[r * ldc + c];
+    dst[c] += s;
+  }
+}
+
+// Zero this block's partial (n floats at part); the caller syncs after.
+__device__ __forceinline__ void zero_partial(float* part, int n) {
+  for (int i = threadIdx.x; i < n; i += THREADS) part[i] = 0.0f;
+}
+
+// out[i] = sum_b work[b * n + i], over the grid blocks b in order.
+__global__ void reduce_partials(const float* __restrict__ work, int grid, int n,
+                                float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.0f;
+  for (int b = 0; b < grid; ++b) s += work[(size_t)b * n + i];
+  out[i] = s;
+}
 
 }  // namespace mk
 

@@ -10,25 +10,30 @@
 // skip concatenation applies to the tangents too. The last layer gives the
 // SDF column for all rows (its tangents are the gradient) and the feature
 // columns for the primal rows. The bounding-sphere clamp runs in-kernel:
-// take = sdf <= s*(R - |x|), else sdf = s*(R - |x|), grad = -s x/|x|. With
-// BF16 the operands and the stored activations are rounded to bf16 and the
-// features are written as bf16, as in the TPU kernel.
+// take = sdf <= s*(R - |x|), else sdf = s*(R - |x|), grad = -s x/|x|; points
+// at or after clamp_rows (when >= 0, the folded eikonal batch) keep the MLP's
+// values. With BF16 the operands and the stored activations are rounded to
+// bf16 and the features are written as bf16, as in the TPU kernel.
+//
+// Training outputs (null pointers skip them): flag, 1.0 where the MLP's
+// value was kept; and z.p[l], each hidden layer's pre-activation Z at the
+// operand type, laid out (4, N, nout_l): the primal row (bias added), then
+// the tangent rows along x, y, z.
 //
 // Bound on the card: operations (about 3.8e11 FLOP per 100,352-point chunk
-// against ~50 MB moved). This first version runs float32 FMAs on the CUDA
-// cores.
+// against ~50 MB moved, plus ~1.6 GB of bf16 Z when training). This first
+// version runs float32 FMAs on the CUDA cores.
 #include "common.cuh"
 
 using namespace mk;
-
-constexpr int PTS = TILE_M / 4;  // points per block (4 stacked rows each)
 
 template <bool BF16>
 __global__ void __launch_bounds__(THREADS)
 sdf_grad_kernel(const float* __restrict__ x, int N, int multires, MlpDesc d,
                 const float* __restrict__ P, float bounding_sphere, float sphere_scale,
-                float* __restrict__ sdf_out, void* __restrict__ feat_out,
-                float* __restrict__ grad_out) {
+                int clamp_rows, float* __restrict__ sdf_out, void* __restrict__ feat_out,
+                float* __restrict__ grad_out, float* __restrict__ flag_out,
+                const __grid_constant__ ZPtrs z) {
   extern __shared__ __align__(16) float smem[];
   float* X0 = smem;
   float* cur = X0 + TILE_M * LD0;
@@ -40,31 +45,7 @@ sdf_grad_kernel(const float* __restrict__ x, int N, int multires, MlpDesc d,
   const int p0 = blockIdx.x * PTS;
   const int d0 = 3 * (1 + 2 * multires);
 
-  if (tid < PTS * 3) {
-    const int p = tid / 3, k = tid - p * 3;
-    xs[p][k] = p0 + p < N ? x[(size_t)(p0 + p) * 3 + k] : 0.0f;
-  }
-  __syncthreads();
-  // embedding [x, sin(2^f x), cos(2^f x), ...] (row p) and its tangent along
-  // axis k (row (k+1)*PTS + p)
-  for (int idx = tid; idx < PTS * LD0; idx += THREADS) {
-    const int p = idx / LD0, c = idx - p * LD0;
-    float e = 0.0f, t[3] = {0.0f, 0.0f, 0.0f};
-    if (c < 3) {
-      e = xs[p][c];
-      t[c] = 1.0f;
-    } else if (c < d0) {
-      const int f = (c - 3) / 6, part = ((c - 3) % 6) / 3, k = (c - 3) % 3;
-      const float fr = (float)(1 << f);
-      const float v = fr * xs[p][k];
-      const float sv = sinf(v), cv = cosf(v);
-      e = part == 0 ? sv : cv;
-      t[k] = part == 0 ? fr * cv : -fr * sv;
-    }
-    X0[p * LD0 + c] = e;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) X0[((k + 1) * PTS + p) * LD0 + c] = t[k];
-  }
+  load_pe_tile(x, N, p0, multires, xs, X0);
   __syncthreads();
   prep_first<BF16>(cur, X0, d0, TILE_M);
 
@@ -90,8 +71,14 @@ sdf_grad_kernel(const float* __restrict__ x, int N, int multires, MlpDesc d,
       }
     }
     __syncthreads();
+    void* zl = z.p[l];
     for (int idx = tid; idx < PTS * nout; idx += THREADS) {
       const int p = idx / nout, c = idx - p * nout;
+      if (zl != nullptr && p0 + p < N) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          store_act<BF16>(zl, ((size_t)k * N + p0 + p) * nout + c, nxt[(k * PTS + p) * LDA + c]);
+      }
       float h, s;
       gate100(nxt[p * LDA + c], h, s);
 #pragma unroll
@@ -136,11 +123,13 @@ sdf_grad_kernel(const float* __restrict__ x, int N, int multires, MlpDesc d,
     const int p = tid;
     float sdf = Zn[p * 4] + bias[0];
     float g[3] = {Zn[(PTS + p) * 4], Zn[(2 * PTS + p) * 4], Zn[(3 * PTS + p) * 4]};
+    bool take = true;
     if (bounding_sphere > 0.0f) {
       const float x0 = xs[p][0], x1 = xs[p][1], x2 = xs[p][2];
       const float norm = sqrtf(x0 * x0 + x1 * x1 + x2 * x2);
       const float sphere = sphere_scale * (bounding_sphere - norm);
-      if (!(sdf <= sphere)) {
+      take = sdf <= sphere || (clamp_rows >= 0 && p0 + p >= clamp_rows);
+      if (!take) {
         sdf = sphere;
         const float q = -sphere_scale / fmaxf(norm, 1e-12f);
         g[0] = x0 * q;
@@ -153,25 +142,30 @@ sdf_grad_kernel(const float* __restrict__ x, int N, int multires, MlpDesc d,
     grad_out[o * 3 + 0] = g[0];
     grad_out[o * 3 + 1] = g[1];
     grad_out[o * 3 + 2] = g[2];
+    if (flag_out != nullptr) flag_out[o] = take ? 1.0f : 0.0f;
   }
 }
 
 extern "C" int sdf_grad_launch(const float* x, int N, int multires, const int* desc,
                                const float* P, float bounding_sphere, float sphere_scale,
-                               float* sdf_out, void* feat_out, float* grad_out, int bf16,
-                               void* stream) {
+                               int clamp_rows, float* sdf_out, void* feat_out, float* grad_out,
+                               float* flag_out, void* const* z_out, int bf16, void* stream) {
   const MlpDesc d = desc_from(desc);
+  ZPtrs z;
+  for (int l = 0; l < MK_MAX_LAYERS; ++l) z.p[l] = z_out[l];
   const size_t smem = MLP_SMEM_FLOATS * sizeof(float);
   const dim3 grid((N + PTS - 1) / PTS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     cudaFuncSetAttribute(sdf_grad_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     sdf_grad_kernel<true><<<grid, THREADS, smem, s>>>(x, N, multires, d, P, bounding_sphere,
-                                                      sphere_scale, sdf_out, feat_out, grad_out);
+                                                      sphere_scale, clamp_rows, sdf_out, feat_out,
+                                                      grad_out, flag_out, z);
   } else {
     cudaFuncSetAttribute(sdf_grad_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     sdf_grad_kernel<false><<<grid, THREADS, smem, s>>>(x, N, multires, d, P, bounding_sphere,
-                                                       sphere_scale, sdf_out, feat_out, grad_out);
+                                                       sphere_scale, clamp_rows, sdf_out, feat_out,
+                                                       grad_out, flag_out, z);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,7 +26,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("sdf_mlp", "sampler_machinery", "sdf_grad", "radiance_norm")
+SOURCES = ("sdf_mlp", "sampler_machinery", "sdf_grad", "radiance_norm", "sdf_grad_bwd",
+           "radiance_norm_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -160,3 +161,19 @@ def pack_mlp(ws, bs, skip_in=()):
         + [int(l in skip_in) for l in range(L)] + pad
     )
     return torch.cat(parts).contiguous(), (ctypes.c_int * len(desc))(*desc)
+
+
+def unpack_mlp(flat: torch.Tensor, ws, bs):
+    """Split a buffer in ``pack_mlp``'s layout back into tensors shaped as
+    ``ws`` and ``bs`` (views of ``flat``)."""
+    out, off = [], 0
+    for t in (*ws, *bs):
+        out.append(flat[off:off + t.numel()].view(t.shape))
+        off += t.numel()
+    return out[:len(ws)], out[len(ws):]
+
+
+def num_sms(device: torch.device) -> int:
+    """Streaming multiprocessors of the card: the persistent grids of the
+    backward kernels take one block per SM."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -145,27 +145,52 @@ def sdf_value_pallas(params: ImplicitNet, cfg: ImplicitNetConfig, x: torch.Tenso
     return _clamp_sdf(cfg, out.reshape(*x.shape[:-1], 1), x)
 
 
+def _spatial_grad(y: torch.Tensor, x: torch.Tensor, keep_graph: bool) -> torch.Tensor:
+    """d sum(y) / dx; with ``keep_graph`` the gradient keeps its own graph,
+    so a loss on it (the eikonal term) differentiates it."""
+    (grad,) = torch.autograd.grad(y.sum(), x, create_graph=keep_graph)
+    return grad
+
+
 def sdf_feat_grad(params: ImplicitNet, cfg: ImplicitNetConfig, x: torch.Tensor, dtype=None):
     """x (..., 3) -> (sdf (..., 1), features (..., F), grad_x sdf (..., 3)),
     the gradient of the clamped SDF by autograd (the JAX package uses forward
-    mode; the values agree)."""
+    mode; the values agree). Under grad (training) all three keep their
+    graph to the parameters, the gradient's by double backward."""
+    training = torch.is_grad_enabled()
     with torch.enable_grad():
         xg = x.detach().requires_grad_(True)
         out = implicit_apply(params, cfg, xg, dtype=dtype)
         sdf = _clamp_sdf(cfg, out[..., :1], xg)
-        (grad,) = torch.autograd.grad(sdf.sum(), xg)
+        grad = _spatial_grad(sdf, xg, training)
+    if training:
+        return sdf, out[..., 1:], grad
     return sdf.detach(), out[..., 1:].detach(), grad
 
 
+def sdf_gradient(params: ImplicitNet, cfg: ImplicitNetConfig, x: torch.Tensor,
+                 dtype=None) -> torch.Tensor:
+    """x (..., 3) -> grad_x sdf (..., 3) of the UNclamped SDF (the
+    reference's gradient_sdf applies no sphere clamp), for the eikonal
+    points of the plain path; keeps its graph under grad, as sdf_feat_grad."""
+    training = torch.is_grad_enabled()
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        grad = _spatial_grad(implicit_apply(params, cfg, xg, dtype=dtype)[..., :1], xg, training)
+    return grad
+
+
 def sdf_feat_grad_pallas(params: ImplicitNet, cfg: ImplicitNetConfig, x: torch.Tensor,
-                         dtype=None):
-    """sdf_feat_grad through K2's forward (clamp in-kernel). Features come
-    at the operand dtype (bf16 under mixed precision), as on the TPU."""
+                         dtype=None, clamp_rows: int = -1):
+    """sdf_feat_grad through K2 (clamp in-kernel; rows at or after
+    ``clamp_rows``, the folded eikonal batch, unclamped). Features come at
+    the operand dtype (bf16 under mixed precision), as on the TPU. Under
+    grad it is differentiable: K2b gives the parameter gradients."""
     prefix = x.shape[:-1]
     ws, bs = effective_linear_weights(params)
     sdf, feat, grad = sdf_mlp_with_grad(
         ws, bs, x.reshape(-1, 3).contiguous(), cfg.multires, tuple(cfg.skip_in), dtype,
-        float(cfg.sdf_bounding_sphere), float(cfg.sphere_scale),
+        float(cfg.sdf_bounding_sphere), float(cfg.sphere_scale), clamp_rows,
     )
     return sdf.reshape(*prefix, 1), feat.reshape(*prefix, -1), grad.reshape(*prefix, 3)
 
@@ -264,7 +289,9 @@ def rendering_apply_pallas_wide(params: RenderingNet, cfg: RenderingNetConfig, p
                                 dtype=None) -> dict:
     """Radiance through K3: takes the raw SDF gradient g (N, 3), normalises
     it in-kernel and returns rgb and the normals. view_dirs may come encoded
-    already (per-ray PE repeated over samples)."""
+    already (per-ray PE repeated over samples). Under grad it is
+    differentiable: K3b gives the parameter, gradient and feature
+    cotangents, with the normals' own cotangent summed in."""
     if cfg.mode != "idr" or cfg.per_image_code:
         raise NotImplementedError("K3 covers the idr trunk without per-image codes")
     if cfg.multires_view > 0 and view_dirs.shape[-1] == 3:

@@ -1,7 +1,8 @@
-"""Top-level MonoSDF model, eval path (monosdf_tpu/models/monosdf.py).
+"""Top-level MonoSDF model (monosdf_tpu/models/monosdf.py).
 
 Ray batch -> error-bounded sampling -> SDF, features and gradient ->
-radiance -> volume rendering (``render_samples``: all after the sampling).
+radiance -> volume rendering (``render_samples``: all after the sampling),
+plus the eikonal points' gradients in training mode.
 ``render_rays(params, cfg, rays)`` takes the ``MonoSDF`` module as
 ``params``, as the JAX function takes the pytree.
 
@@ -32,6 +33,7 @@ from .fields import (
     rendering_apply_pallas_wide,
     sdf_feat_grad,
     sdf_feat_grad_pallas,
+    sdf_gradient,
     sdf_value,
     sdf_value_pallas,
     sweep_weights,
@@ -114,17 +116,31 @@ def _dtype(name: str):
     return None if name == "float32" else getattr(torch, name)
 
 
-@torch.no_grad()
-def render_rays(params: MonoSDF, cfg: MonoSDFConfig, rays: dict, training: bool = False,
-                image_code=None) -> dict:
-    """Render a flat ray batch (eval): the error-bounded sampler, then
-    ``render_samples`` at the points it drew.
+def eikonal_points(rays_o, rays_d, z_eik, bound: float, draws=None, generator=None):
+    """The eikonal points (4R, 3): R uniform in [-bound, bound)^3, R near the
+    surface at z_eik along each ray, and a neighbour of each of those 2R
+    within +-0.005 per axis. ``draws`` may hold ``eik_uniform`` (R, 3), the
+    uniform points, and ``eik_neigh`` (2R, 3) in [0, 1), the neighbours'
+    offsets; the rest come from ``generator``."""
+    draws = draws or {}
+    R = rays_o.shape[0]
+    kw = {"generator": generator, "device": rays_o.device, "dtype": rays_o.dtype}
+    uniform = draws.get("eik_uniform")
+    if uniform is None:
+        uniform = torch.rand(R, 3, **kw) * (2.0 * bound) - bound
+    pts = torch.cat([uniform, rays_o + z_eik * rays_d], dim=0)
+    neigh = draws.get("eik_neigh")
+    if neigh is None:
+        neigh = torch.rand(2 * R, 3, **kw)
+    return torch.cat([pts, pts + (neigh - 0.5) * 0.01], dim=0)
 
-    rays: rays_o (R,3), rays_d (R,3) normalised, depth_scale (R,1), pose
-    (R,4,4) camera-to-world. Returns rgb, rgb_values, depth_values, z_vals,
-    depth_vals, sdf, weights and normal_map (camera frame)."""
-    if training:
-        raise NotImplementedError("training slice")
+
+@torch.no_grad()
+def sample_rays(params: MonoSDF, cfg: MonoSDFConfig, rays: dict, training: bool = False,
+                draws=None, generator=None):
+    """The sampler half of ``render_rays``: z_vals (R, S) in eval; in
+    training (z_vals, eikonal points (4R, 3)), drawn with ``draws`` and
+    ``generator`` as ``render_rays`` says."""
     imp_cfg = cfg.implicit
     beta0 = get_beta(params.density.beta, cfg.beta_min)
     sampler_dtype = _dtype(cfg.compute_dtype)
@@ -138,26 +154,84 @@ def render_rays(params: MonoSDF, cfg: MonoSDFConfig, rays: dict, training: bool 
         def sampler_sdf(pts):
             return sdf_value(params.implicit, imp_cfg, pts, dtype=sampler_dtype)[..., 0]
 
-    z_vals = error_bound_z_vals(sampler_sdf, rays["rays_o"], rays["rays_d"], beta0, cfg.sampler)
-    return render_samples(params, cfg, rays, z_vals, image_code)
+    sampled = error_bound_z_vals(sampler_sdf, rays["rays_o"], rays["rays_d"], beta0,
+                                 cfg.sampler, training, draws, generator)
+    if not training:
+        return sampled
+    z_vals, z_eik = sampled
+    # the uniform eikonal points fill the sampler's scene box (the JAX
+    # config's separate scene_bounding_sphere takes the same value)
+    return z_vals, eikonal_points(rays["rays_o"], rays["rays_d"], z_eik,
+                                  cfg.sampler.scene_bounding_sphere, draws, generator)
 
 
-@torch.no_grad()
+def render_rays(params: MonoSDF, cfg: MonoSDFConfig, rays: dict, training: bool = False,
+                image_code=None, draws=None, generator=None) -> dict:
+    """Render a flat ray batch: the error-bounded sampler (``sample_rays``),
+    then ``render_samples`` at the points it drew.
+
+    rays: rays_o (R,3), rays_d (R,3) normalised, depth_scale (R,1), pose
+    (R,4,4) camera-to-world. Returns rgb, rgb_values, depth_values, z_vals,
+    depth_vals, sdf, weights and normal_map (camera frame).
+
+    Eval (``training=False``) runs without grad. Training draws the
+    sampler's jitter, final draw, extra samples and eikonal pick and the
+    eikonal points at random (``draws`` may hold any of them, see
+    ``ops.sampler.training_draws`` and ``eikonal_points``; the rest come
+    from ``generator``), keeps the graph to the parameters (call it under
+    grad), and adds ``grad_theta`` and ``grad_theta_nei`` (2R, 3 each): the
+    unclamped SDF gradient at the eikonal points and at their neighbours."""
+    if not training:
+        return render_samples(params, cfg, rays, sample_rays(params, cfg, rays), image_code)
+    z_vals, eik = sample_rays(params, cfg, rays, True, draws, generator)
+    return render_samples(params, cfg, rays, z_vals, image_code, eik_points=eik)
+
+
 def render_samples(params: MonoSDF, cfg: MonoSDFConfig, rays: dict, z_vals: torch.Tensor,
-                   image_code=None) -> dict:
+                   image_code=None, eik_points=None) -> dict:
     """The render after the sampler: SDF, features and gradient at the
     points at ``z_vals`` (R, S) along each ray, radiance and volume
     rendering. Given the z_vals of another render, it renders at exactly
-    those points. Returns what ``render_rays`` returns."""
+    those points. Returns what ``render_rays`` returns.
+
+    Without ``eik_points`` it is the eval render, without grad. With them
+    (training: (4R, 3), see ``eikonal_points``) it keeps the graph and adds
+    ``grad_theta``/``grad_theta_nei``; on the K2 path the eikonal points go
+    through the same K2 call as the main points, unclamped (``clamp_rows``:
+    the JAX package's ``fold_eikonal=True``, its default and the bench's),
+    so one K2f and one K2b launch serve both."""
+    if eik_points is None:
+        with torch.no_grad():
+            return _render_samples(params, cfg, rays, z_vals, image_code, None)
+    return _render_samples(params, cfg, rays, z_vals, image_code, eik_points)
+
+
+def _render_samples(params, cfg, rays, z_vals, image_code, eik_points) -> dict:
     rays_o, rays_d = rays["rays_o"], rays["rays_d"]
     R, S = z_vals.shape
     imp_cfg = cfg.implicit
     points_flat = (rays_o[:, None, :] + z_vals[..., None] * rays_d[:, None, :]).reshape(-1, 3)
+    n_main = points_flat.shape[0]
+    training = eik_points is not None
 
     main_dtype = _dtype(cfg.compute_dtype) if cfg.mixed_precision else None
     use_pallas_diff = cfg.diff_backend == "pallas"
-    diff = sdf_feat_grad_pallas if use_pallas_diff else sdf_feat_grad
-    sdf, feature_vectors, gradients = diff(params.implicit, imp_cfg, points_flat, dtype=main_dtype)
+    if use_pallas_diff:
+        pts_in = torch.cat([points_flat, eik_points], dim=0) if training else points_flat
+        sdf, feature_vectors, gradients = sdf_feat_grad_pallas(
+            params.implicit, imp_cfg, pts_in, dtype=main_dtype,
+            clamp_rows=n_main if training else -1,
+        )
+        if training:
+            grad_theta = gradients[n_main:]
+            sdf = sdf[:n_main]
+            feature_vectors = feature_vectors[:n_main]
+            gradients = gradients[:n_main]
+    else:
+        sdf, feature_vectors, gradients = sdf_feat_grad(params.implicit, imp_cfg, points_flat,
+                                                        dtype=main_dtype)
+        if training:
+            grad_theta = sdf_gradient(params.implicit, imp_cfg, eik_points, dtype=main_dtype)
 
     code_flat = None
     if image_code is not None:
@@ -201,7 +275,7 @@ def render_samples(params: MonoSDF, cfg: MonoSDFConfig, rays: dict, z_vals: torc
     # world normals into the camera frame
     rot = rays["pose"][:, :3, :3].transpose(1, 2)
     normal_map = torch.einsum("rij,rj->ri", rot, normal_map)
-    return {
+    out = {
         "rgb": rgb,
         "rgb_values": rgb_values,
         "depth_values": depth_values,
@@ -211,3 +285,7 @@ def render_samples(params: MonoSDF, cfg: MonoSDFConfig, rays: dict, z_vals: torc
         "weights": weights,
         "normal_map": normal_map,
     }
+    if training:
+        half = eik_points.shape[0] // 2
+        out["grad_theta"], out["grad_theta_nei"] = grad_theta[:half], grad_theta[half:]
+    return out

@@ -15,9 +15,11 @@ from torch import nn
 
 
 def softplus_beta(x: torch.Tensor, beta: float = 100.0) -> torch.Tensor:
-    """(1/beta) * log(1 + exp(beta*x)), as ``jax.nn.softplus(beta*x)/beta``."""
-    bx = beta * x
-    return torch.logaddexp(bx, torch.zeros_like(bx)) / beta
+    """(1/beta) * log(1 + exp(beta*x)), as ``jax.nn.softplus(beta*x)/beta``
+    (linear above beta*x = 20, where the two differ by < 1e-10 relative).
+    Its derivative is the sigmoid, so the eikonal loss's double backward
+    stays finite (``torch.logaddexp``'s gives NaN for large beta*x)."""
+    return torch.nn.functional.softplus(x, beta=beta, threshold=20.0)
 
 
 class Linear(nn.Module):

@@ -1,4 +1,4 @@
-"""Error-bounded sampler, eval path (monosdf_tpu/ops/sampler.py).
+"""Error-bounded sampler (monosdf_tpu/ops/sampler.py).
 
 VolSDF Algorithm 1 statically unrolled for ``max_total_iters`` rounds: SDF
 sweeps over ``N_samples_eval`` new points per round, merged with the cached
@@ -6,8 +6,15 @@ values by one sort; beta bisection, error bound and the next pdf per round
 (``kernels/sampler_machinery.py``, K4 with ``machinery='pallas'``, its
 plain version at float32 with ``'jnp'``); a final inverse-CDF draw, the
 near/far and extra samples, and a last sort. Eval mode draws with
-``linspace`` only. The training path's random draws and the eikonal pick
-(``z_eik``) come with the training slice.
+``linspace`` only.
+
+Training mode draws at random, as the JAX function does: the stratified
+jitter of the uniform init (``t_rand``, (R, N_samples_eval) in [0, 1)), the
+final inverse-CDF draw (``u_final``, (R, N_samples)), the pick of the extra
+samples (``extra_idx``, the first N_samples_extra of a permutation of the
+merged buffer) and one existing sample per ray for the eikonal points
+(``eik_idx``, (R, 1)). Each can be passed in ``draws``, so tests can feed
+the JAX draws; the rest come from ``generator`` (on the rays' device).
 """
 
 from __future__ import annotations
@@ -78,8 +85,9 @@ def linspace(start: float, stop: float, num: int, device=None) -> torch.Tensor:
     return torch.cat([out, torch.full((1,), stop, dtype=torch.float32, device=device)])
 
 
-def uniform_z_vals(rays_o, rays_d, cfg: SamplerConfig, n_samples: int):
-    """Uniform samples in [near, far] (eval: no jitter). Returns (z, near, far)."""
+def uniform_z_vals(rays_o, rays_d, cfg: SamplerConfig, n_samples: int, t_rand=None):
+    """Uniform samples in [near, far], stratified-jittered by ``t_rand`` (R,
+    n_samples) in [0, 1) when given (training). Returns (z, near, far)."""
     R = rays_o.shape[0]
     near = torch.full((R, 1), cfg.near, dtype=rays_o.dtype, device=rays_o.device)
     if cfg.intersection == "cube":
@@ -90,7 +98,13 @@ def uniform_z_vals(rays_o, rays_d, cfg: SamplerConfig, n_samples: int):
     else:
         far = torch.full((R, 1), cfg.far_value, dtype=rays_o.dtype, device=rays_o.device)
     t_vals = linspace(0.0, 1.0, n_samples, device=rays_o.device)
-    return near * (1.0 - t_vals) + far * t_vals, near, far
+    z_vals = near * (1.0 - t_vals) + far * t_vals
+    if t_rand is not None:
+        mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
+        lower = torch.cat([z_vals[..., :1], mids], dim=-1)
+        z_vals = lower + (upper - lower) * t_rand
+    return z_vals, near, far
 
 
 def _sample_pdf(bins: torch.Tensor, pdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -154,26 +168,44 @@ def extra_sample_indices(n_buf: int, n_extra: int, device=None) -> torch.Tensor:
     return linspace(0.0, float(n_buf - 1), n_extra, device=device).to(torch.int64)
 
 
-def _final_tail(z_vals, samples, rays_o, rays_d, cfg: SamplerConfig):
-    """near/far + N_samples_extra picked from the merged buffer, final sort."""
+def _final_tail(z_vals, samples, rays_o, rays_d, cfg: SamplerConfig, extra_idx=None):
+    """near/far + N_samples_extra picked from the merged buffer (at
+    ``extra_idx`` when given, else eval's linspace pick), final sort."""
     R = rays_o.shape[0]
     kw = {"dtype": rays_o.dtype, "device": rays_o.device}
     parts = [torch.full((R, 1), cfg.near, **kw), torch.full((R, 1), cfg.far_value, **kw)]
     if cfg.N_samples_extra > 0:
-        idx = extra_sample_indices(z_vals.shape[1], cfg.N_samples_extra, rays_o.device)
-        parts.append(z_vals[:, idx])
+        if extra_idx is None:
+            extra_idx = extra_sample_indices(z_vals.shape[1], cfg.N_samples_extra, rays_o.device)
+        parts.append(z_vals[:, extra_idx])
     z_final, _ = torch.sort(torch.cat([samples, *parts], dim=-1), dim=-1)
     return z_final
 
 
+def training_draws(R: int, cfg: SamplerConfig, draws=None, generator=None, device=None) -> dict:
+    """The sampler's training draws: those given in ``draws``, the rest from
+    ``generator`` (see the module docstring for names and shapes)."""
+    draws = dict(draws or {})
+    n_buf = cfg.N_samples_eval * cfg.max_total_iters
+    kw = {"generator": generator, "device": device}
+    if "t_rand" not in draws:
+        draws["t_rand"] = torch.rand(R, cfg.N_samples_eval, **kw)
+    if "u_final" not in draws:
+        draws["u_final"] = torch.rand(R, cfg.N_samples, **kw)
+    if "extra_idx" not in draws:
+        draws["extra_idx"] = torch.randperm(n_buf, **kw)[:cfg.N_samples_extra]
+    if "eik_idx" not in draws:
+        draws["eik_idx"] = torch.randint(0, cfg.total_samples, (R, 1), **kw)
+    return draws
+
+
 @torch.no_grad()
 def error_bound_z_vals(sdf_fn: Callable, rays_o, rays_d, beta0, cfg: SamplerConfig,
-                       training: bool = False):
-    """VolSDF error-bounded sampling (eval). sdf_fn: (..., 3) -> (...).
-    rays_o, rays_d (R, 3); beta0 a 0-d tensor. Returns z_vals (R, N_samples +
-    N_samples_extra + 2), sorted."""
-    if training:
-        raise NotImplementedError("training slice")
+                       training: bool = False, draws=None, generator=None):
+    """VolSDF error-bounded sampling. sdf_fn: (..., 3) -> (...). rays_o,
+    rays_d (R, 3); beta0 a 0-d tensor. Returns z_vals (R, N_samples +
+    N_samples_extra + 2), sorted; in training mode (z_vals, z_eik (R, 1)),
+    drawn with ``draws`` and ``generator`` (``training_draws``)."""
     R = rays_o.shape[0]
     dev = rays_o.device
     beta0 = torch.as_tensor(beta0, dtype=rays_o.dtype, device=dev)
@@ -181,7 +213,10 @@ def error_bound_z_vals(sdf_fn: Callable, rays_o, rays_d, beta0, cfg: SamplerConf
     def eval_sdf(z):
         return sdf_fn(rays_o[:, None, :] + z[..., None] * rays_d[:, None, :])
 
-    z_vals, _, _ = uniform_z_vals(rays_o, rays_d, cfg, cfg.N_samples_eval)
+    if training:
+        draws = training_draws(R, cfg, draws, generator, dev)
+    z_vals, _, _ = uniform_z_vals(rays_o, rays_d, cfg, cfg.N_samples_eval,
+                                  draws["t_rand"] if training else None)
     sdf = eval_sdf(z_vals)
 
     # beta upper bound from Lemma 2
@@ -209,10 +244,16 @@ def error_bound_z_vals(sdf_fn: Callable, rays_o, rays_d, beta0, cfg: SamplerConf
         beta = beta_col[:, 0]
         pdf = pdf_full[:, :-1]
         n_draw = cfg.N_samples if last else cfg.N_samples_eval
-        u = linspace(0.0, 1.0, n_draw, device=dev)[None].expand(R, n_draw)
+        if last and training:
+            u = draws["u_final"]
+        else:
+            u = linspace(0.0, 1.0, n_draw, device=dev)[None].expand(R, n_draw)
         new_z = _sample_pdf(z_vals, pdf, u)
         if last:
             samples = new_z
         else:
             z_vals, sdf = _merge_sorted_sort(z_vals, sdf, new_z, eval_sdf(new_z))
-    return _final_tail(z_vals, samples, rays_o, rays_d, cfg)
+    if not training:
+        return _final_tail(z_vals, samples, rays_o, rays_d, cfg)
+    z_final = _final_tail(z_vals, samples, rays_o, rays_d, cfg, draws["extra_idx"])
+    return z_final, torch.gather(z_final, 1, draws["eik_idx"])

@@ -14,12 +14,22 @@ import pytest
 import torch
 
 from monosdf_torch.kernels import build
-from monosdf_torch.kernels.radiance_norm import radiance_norm, radiance_norm_plain
+from monosdf_torch.kernels.radiance_norm import (
+    radiance_norm,
+    radiance_norm_bwd,
+    radiance_norm_bwd_plain,
+    radiance_norm_plain,
+)
 from monosdf_torch.kernels.sampler_machinery import (
     sampler_iter_machinery,
     sampler_iter_machinery_plain,
 )
-from monosdf_torch.kernels.sdf_grad import sdf_mlp_with_grad, sdf_mlp_with_grad_plain
+from monosdf_torch.kernels.sdf_grad import (
+    sdf_mlp_with_grad,
+    sdf_mlp_with_grad_bwd,
+    sdf_mlp_with_grad_bwd_plain,
+    sdf_mlp_with_grad_plain,
+)
 from monosdf_torch.kernels.sdf_mlp import sdf_mlp, sdf_mlp_plain
 from monosdf_torch.models.fields import (
     ImplicitNetConfig,
@@ -94,7 +104,88 @@ def test_k1_k2_k3_match_plain(dev, dtype):
                radiance_norm_plain(rws, rbs, g, sv, feat, dtype), dtype)
     torch.cuda.synchronize()
     assert {k: build.launches[k] - before[k] for k in before} == {
-        "sdf_mlp": 1, "sampler_machinery": 0, "sdf_grad": 1, "radiance_norm": 1}
+        "sdf_mlp": 1, "sampler_machinery": 0, "sdf_grad": 1, "radiance_norm": 1,
+        "sdf_grad_bwd": 0, "radiance_norm_bwd": 0}
+
+
+# parameter gradients, sums over the rows: err <= atol + rtol * max|plain| per
+# tensor; float32 sums in another order, bf16 operands in both
+GRAD_TOL = {None: (2e-4, 1e-3), torch.bfloat16: (1e-2, 2e-2)}
+
+
+def _check_grads(outs, refs, dtype):
+    atol, rtol = GRAD_TOL[dtype]
+    for a, b in zip(outs, refs):
+        assert a.shape == b.shape and torch.isfinite(a.float()).all()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= atol + rtol * b.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_k2_training_forward_and_backward_match_plain(dev, dtype):
+    """K2f with clamp_rows, flag and saved Z, and K2b, against their plain
+    versions; 700 points (no multiple of the 16-point tile), a 0.9 sphere
+    so that the clamp fires, the last 100 points unclamped."""
+    imp, _ = _nets(dev)
+    with torch.no_grad():
+        ws, bs = effective_linear_weights(imp)
+        x = _rand(dev, 700, 3, lo=-1.3, hi=1.3, seed=4)
+        args = (ws, bs, x, IMP.multires, IMP.skip_in, dtype, 0.9, 1.0, 600, True)
+        sdf, feat, grad, flag, zs = sdf_mlp_with_grad(*args)
+        ref = sdf_mlp_with_grad_plain(*args)
+        # where the take-MLP select flips (bf16: an SDF within a rounding of
+        # the sphere's), sdf and grad take the other branch; compare the rest
+        same = (flag == ref[3])[:, 0]
+        assert int((~same).sum()) <= (0 if dtype is None else 7)
+        _check([sdf[same], feat, grad[same], *zs], [ref[0][same], ref[1], ref[2][same], *ref[4]],
+               dtype)
+        assert 0 < int((flag[:600] == 0).sum()) and bool((flag[600:] == 1).all())
+        cots = [_rand(dev, 700, k, seed=5 + k) for k in (1, 32, 3)]
+        dws, dbs = sdf_mlp_with_grad_bwd(ws, bs, x, zs, *cots, IMP.multires, IMP.skip_in, dtype,
+                                         flag)
+        dws_p, dbs_p = sdf_mlp_with_grad_bwd_plain(ws, bs, x, zs, *cots, IMP.multires,
+                                                   IMP.skip_in, dtype, flag)
+        _check_grads([*dws, *dbs], [*dws_p, *dbs_p], dtype)
+        again = sdf_mlp_with_grad_bwd(ws, bs, x, zs, *cots, IMP.multires, IMP.skip_in, dtype, flag)
+        assert all(torch.equal(a, b) for a, b in zip([*dws, *dbs], [*again[0], *again[1]]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_k3_backward_matches_plain(dev, dtype):
+    _, ren = _nets(dev)
+    with torch.no_grad():
+        rws, rbs = effective_linear_weights(ren)
+        g = _rand(dev, 700, 3, seed=1)
+        g[:5] = 0.0
+        sv = torch.cat([_rand(dev, 700, 3), positional_encoding(_rand(dev, 700, 3, seed=2), 4)], -1)
+        feat = _rand(dev, 700, 32, seed=3)
+        co, cn = _rand(dev, 700, 3, seed=8), _rand(dev, 700, 3, seed=9)
+        dws, dbs, dg, df = radiance_norm_bwd(rws, rbs, g, sv, feat, co, cn, dtype)
+        dws_p, dbs_p, dg_p, df_p = radiance_norm_bwd_plain(rws, rbs, g, sv, feat, co, cn, dtype)
+        _check_grads([*dws, *dbs, dg], [*dws_p, *dbs_p, dg_p], dtype)
+        _check([df], [df_p], dtype)
+
+
+@pytest.mark.cuda
+def test_autograd_functions_launch_the_backward_kernels(dev):
+    imp, ren = _nets(dev)
+    before = dict(build.launches)
+    ws, bs = effective_linear_weights(imp)
+    x = _rand(dev, 300, 3)
+    sdf, feat, grad = sdf_mlp_with_grad(ws, bs, x, IMP.multires, IMP.skip_in, torch.bfloat16,
+                                        1.1, 1.0, 250)
+    rws, rbs = effective_linear_weights(ren)
+    sv = torch.cat([x, positional_encoding(x, 4)], -1)
+    rgb, nrm = radiance_norm(rws, rbs, grad, sv, feat, torch.bfloat16)
+    (sdf.sum() + rgb.sum() + nrm.sum() + (grad**2).sum()).backward()
+    torch.cuda.synchronize()
+    for p in [*imp.parameters(), *ren.parameters()]:
+        assert p.grad is not None and torch.isfinite(p.grad).all()
+    assert {k: build.launches[k] - before[k] for k in before} == {
+        "sdf_mlp": 0, "sampler_machinery": 0, "sdf_grad": 1, "radiance_norm": 1,
+        "sdf_grad_bwd": 1, "radiance_norm_bwd": 1}
 
 
 @pytest.mark.cuda

@@ -15,7 +15,7 @@ REPO = Path(__file__).resolve().parent.parent
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
-        "import sys, chip_smoke, monosdf_torch, monosdf_torch.cli.eval\n"
+        "import sys, chip_smoke, monosdf_torch, monosdf_torch.cli.eval, monosdf_torch.cli.train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'monosdf_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -33,4 +33,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
         init_monosdf(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         teval.main(["--n_images", "1", "--img_res", "2"])
+    from monosdf_torch.cli import train as ttrain
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrain.main(["--steps", "1", "--rays", "2"])
     assert next(init_monosdf(cfg, device="cpu").parameters()).device.type == "cpu"

@@ -15,20 +15,32 @@ import jax
 import jax.numpy as jnp
 
 import monosdf_tpu.models.fields as jf
+import monosdf_tpu.ops.pallas_rgb_grad as jrgb
+import monosdf_tpu.ops.pallas_sdf_grad as jsdf
 import monosdf_tpu.ops.sampler as js
 from monosdf_tpu.ops.density import laplace_density as jlaplace
 from monosdf_tpu.ops.pallas_mlp import effective_linear_weights, fused_sdf_mlp
 from monosdf_tpu.ops.pallas_sampler import sampler_iter_machinery as jmachinery
 import monosdf_torch.models.fields as tf
 from monosdf_torch.kernels import build
-from monosdf_torch.kernels.radiance_norm import radiance_norm
+from monosdf_torch.kernels.radiance_norm import (
+    radiance_norm,
+    radiance_norm_bwd,
+    radiance_norm_plain,
+)
 from monosdf_torch.kernels.sampler_machinery import (
     sampler_iter_machinery,
     sampler_iter_machinery_plain,
 )
-from monosdf_torch.kernels.sdf_grad import sdf_mlp_with_grad
+from monosdf_torch.kernels.sdf_grad import (
+    sdf_mlp_with_grad,
+    sdf_mlp_with_grad_bwd,
+    sdf_mlp_with_grad_bwd_plain,
+    sdf_mlp_with_grad_plain,
+)
 from monosdf_torch.kernels.sdf_mlp import sdf_mlp, sdf_mlp_plain
 from monosdf_torch.ops.embedder import positional_encoding
+from monosdf_torch.params import flatten_tree
 from torch_parity import both_models, configs
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -245,11 +257,183 @@ def test_k2_plain_matches_jnp_path(models):
         _close(a, b)
 
 
-def test_k2_forward_only():
-    w = [torch.zeros(27, 4, requires_grad=True), torch.zeros(4, 2)]
-    b = [torch.zeros(4), torch.zeros(2)]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        sdf_mlp_with_grad(w, b, torch.zeros(5, 3), 4, ())
+def test_k2_requires_grad_takes_the_autograd_path():
+    """A weight that requires grad routes K2 through its autograd Function
+    (plain versions on the CPU): finite gradients, no kernel launch."""
+    gen = torch.Generator().manual_seed(0)
+    ws = [(0.3 * torch.randn(27, 8, generator=gen)).requires_grad_(),
+          (0.3 * torch.randn(8, 5, generator=gen)).requires_grad_()]
+    bs = [torch.zeros(8, requires_grad=True), torch.zeros(5, requires_grad=True)]
+    x = torch.rand(6, 3, generator=gen) * 2 - 1
+    before = dict(build.launches)
+    sdf, feat, grad = sdf_mlp_with_grad(ws, bs, x, 4, (), None, 1.1, 1.0)
+    assert grad.grad_fn is not None and type(grad.grad_fn).__name__ == "_SdfMlpWithGradBackward"
+    (sdf.sum() + feat.sum() + (grad**2).sum()).backward()
+    for t in (*ws, *bs):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+    assert build.launches == before
+
+
+# -- K2 training forward (save_z, clamp_rows, flag) and K2b ---------------------
+
+K2_BLOCK = 64  # the JAX kernel's row block here; 150 points is no multiple of it
+
+
+def _k2_case(seed=11, n=150, n_eik=20, bounding=0.9):
+    """A config with a 0.9 bounding sphere (the clamp fires on points
+    outside it), its JAX params and the port's effective weights, and n
+    points of which the last n_eik are a folded, unclamped batch."""
+    cfg = jf.ImplicitNetConfig(feature_vector_size=32, dims=(48, 48, 48, 48), skip_in=(2,),
+                               multires=4, sdf_bounding_sphere=bounding, inside_outside=True,
+                               bias=0.9)
+    tcfg = tf.ImplicitNetConfig(**{f: getattr(cfg, f) for f in (
+        "feature_vector_size", "dims", "skip_in", "multires", "sdf_bounding_sphere",
+        "inside_outside", "bias")})
+    gen = torch.Generator().manual_seed(seed)
+    net = tf.init_implicit_net(tcfg, gen)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    tws, tbs = (list(t.detach() for t in ts) for ts in tf.effective_linear_weights(net))
+    jws, jbs = [jnp.asarray(w.numpy()) for w in tws], [jnp.asarray(b.numpy()) for b in tbs]
+    x = _f32(n, 3, lo=-1.3, hi=1.3, seed=seed)
+    return cfg, tws, tbs, jws, jbs, x, n - n_eik
+
+
+def _jax_z_to_port(zs, ws, n, block):
+    """The JAX kernel's Z, block i owning rows [4b i, 4b (i+1)) and the
+    columns padded to 128, as the port's (4, N, out) layout."""
+    out = []
+    for z, w in zip(zs, ws):
+        z = np.asarray(z.astype(jnp.float32))
+        out.append(z.reshape(-1, 4, block, z.shape[1]).transpose(1, 0, 2, 3)
+                   .reshape(4, -1, z.shape[1])[:, :n, :w.shape[1]])
+    return out
+
+
+# bf16: the activations are bf16 between layers in both, and float32 sums
+# in another order can round one to the neighbouring bf16 value; that moves
+# sdf and gradient by ~1e-2 through 5 layers, and a stored Z (|Z| up to ~4)
+# by one bf16 ulp, 2^-6.
+@pytest.mark.parametrize("dtype,tol,ztol", [("float32", TOL, TOL),
+                                            ("bfloat16", dict(atol=3e-2), dict(atol=6.3e-2))])
+def test_k2_training_forward_matches_pallas(dtype, tol, ztol):
+    cfg, tws, tbs, jws, jbs, x, n_main = _k2_case()
+    sdf_j, feat_j, g_j, flag_j, zs_j = jsdf._fwd_pallas(
+        jws, jbs, jnp.asarray(x), cfg.skip_in, cfg.multires, JDT[dtype], K2_BLOCK, None,
+        save_z=True, bounding_sphere=cfg.sdf_bounding_sphere, clamp_rows=n_main)
+    sdf_t, feat_t, g_t, flag_t, zs_t = sdf_mlp_with_grad(
+        tws, tbs, torch.from_numpy(x), cfg.multires, cfg.skip_in, TDT[dtype],
+        cfg.sdf_bounding_sphere, 1.0, clamp_rows=n_main, save_z=True)
+    for a, b in ((sdf_t, sdf_j), (feat_t, feat_j), (g_t, g_j)):
+        _close(a, b, **tol)
+    np.testing.assert_array_equal(_np(flag_t), np.asarray(flag_j))
+    assert 0 < int((flag_t[:n_main] == 0).sum()) and bool((flag_t[n_main:] == 1).all())
+    assert [z.shape for z in zs_t] == [(4, x.shape[0], w.shape[1]) for w in tws[:-1]]
+    assert all(z.dtype == (TDT[dtype] or torch.float32) for z in zs_t)
+    for a, b in zip(zs_t, _jax_z_to_port(zs_j, tws, x.shape[0], K2_BLOCK)):
+        _close(a, b, **ztol)
+
+
+def _k2_cotangents(n, F, seed=12):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=s).astype(np.float32) for s in ((n, 1), (n, F), (n, 3))]
+
+
+def _grad_close(dws_t, dbs_t, dws_j, dbs_j, atol, rtol):
+    """Per tensor: |a - b| <= atol + rtol * max|b| (sums over the rows)."""
+    for a, b in zip([*dws_t, *dbs_t], [*dws_j, *dbs_j]):
+        b = np.asarray(b, np.float32)
+        np.testing.assert_allclose(_np(a), b, atol=atol + rtol * float(np.abs(b).max()), rtol=0)
+
+
+# The same x, Z (the JAX forward's), cotangents and flag into both. float32:
+# sums in another order, the repo's kernel parameter-grad bar; bf16: the
+# operands are bf16 in both, the float32 sums run in another order over
+# ~600 rows, and a rounding can land on the neighbouring bf16 value.
+@pytest.mark.parametrize("dtype,atol,rtol", [("float32", 2e-4, 1e-3), ("bfloat16", 1e-2, 2e-2)])
+def test_k2_backward_matches_pallas(dtype, atol, rtol):
+    cfg, tws, tbs, jws, jbs, x, n_main = _k2_case()
+    n = x.shape[0]
+    _, _, _, flag_j, zs_j = jsdf._fwd_pallas(
+        jws, jbs, jnp.asarray(x), cfg.skip_in, cfg.multires, JDT[dtype], K2_BLOCK, None,
+        save_z=True, bounding_sphere=cfg.sdf_bounding_sphere, clamp_rows=n_main)
+    cs, cf, cg = _k2_cotangents(n, cfg.feature_vector_size)
+    dws_j, dbs_j = jsdf._bwd_pallas(jws, jbs, jnp.asarray(x), zs_j, jnp.asarray(cs),
+                                    jnp.asarray(cf), jnp.asarray(cg), cfg.skip_in, cfg.multires,
+                                    JDT[dtype], K2_BLOCK, None, flag=flag_j)
+    zs_t = [torch.from_numpy(z).to(TDT[dtype] or torch.float32)
+            for z in _jax_z_to_port(zs_j, tws, n, K2_BLOCK)]
+    dws_t, dbs_t = sdf_mlp_with_grad_bwd(
+        tws, tbs, torch.from_numpy(x), zs_t, *(torch.from_numpy(c) for c in (cs, cf, cg)),
+        cfg.multires, cfg.skip_in, TDT[dtype], flag=torch.from_numpy(np.array(flag_j)))
+    _grad_close(dws_t, dbs_t, dws_j, dbs_j, atol, rtol)
+
+
+def test_k2_backward_recomputes_z_when_not_given():
+    cfg, tws, tbs, _, _, x, n_main = _k2_case(seed=13)
+    xt = torch.from_numpy(x)
+    _, _, _, flag, zs = sdf_mlp_with_grad_plain(tws, tbs, xt, cfg.multires, cfg.skip_in, None,
+                                                cfg.sdf_bounding_sphere, 1.0, n_main, True)
+    cots = [torch.from_numpy(c) for c in _k2_cotangents(x.shape[0], cfg.feature_vector_size)]
+    a = sdf_mlp_with_grad_bwd_plain(tws, tbs, xt, zs, *cots, cfg.multires, cfg.skip_in, flag=flag)
+    b = sdf_mlp_with_grad_bwd_plain(tws, tbs, xt, None, *cots, cfg.multires, cfg.skip_in,
+                                    flag=flag)
+    for u, v in zip([*a[0], *a[1]], [*b[0], *b[1]]):
+        assert torch.equal(u, v)
+
+
+def _k2_loss(s, f, g, tgt, n):
+    """tests/test_pallas_sdf_grad.py:77-85's loss, on the first n rows."""
+    norm = (g * g).sum(-1) ** 0.5
+    return ((s[:n] ** 2).mean() + 0.1 * ((f[:n] - 0.3) ** 2).mean()
+            + 0.5 * ((norm - 1.0) ** 2).mean() + abs(g[:n] - tgt[:n]).mean())
+
+
+def test_k2_autograd_grads_match_jax_grad_and_double_backward():
+    """The autograd Function's parameter gradients (K2f with saved Z, K2b;
+    plain versions on the CPU) against jax.grad through the JAX Pallas
+    path and against torch's double backward of the plain forward, f32 at
+    the repo's kernel parameter-grad bar 2e-4 / 1e-3."""
+    jcfg, tcfg = configs(True)
+    jparams, model, _ = both_models(jcfg, tcfg)
+    x = _points(72, seed=1)
+    tgt = np.random.default_rng(2).normal(size=(72, 3)).astype(np.float32)
+    n = 60  # the last 12 rows: a folded eikonal batch (clamp_rows)
+
+    def jloss(p):
+        s, f, g = jf.sdf_feat_grad_pallas(p, jcfg.implicit, jnp.asarray(x), clamp_rows=n)
+        return _k2_loss(s, f, g, jnp.asarray(tgt), n)
+
+    gj = jax.grad(jloss)(jparams["implicit"])
+    grads = {}
+    for name, fn in (("kernel", lambda: tf.sdf_feat_grad_pallas(
+            model.implicit, tcfg.implicit, torch.from_numpy(x), clamp_rows=n)),
+                     ("plain", lambda: _plain_folded(model, tcfg, x, n))):
+        model.zero_grad()
+        _k2_loss(*fn(), torch.from_numpy(tgt), n).backward()
+        grads[name] = {k: p.grad.clone() for k, p in model.implicit.named_parameters()}
+    flat_j = _flat(gj)
+    for k, g in grads["kernel"].items():
+        np.testing.assert_allclose(_np(g), flat_j[k], atol=2e-4, rtol=1e-3, err_msg=k)
+        np.testing.assert_allclose(_np(g), _np(grads["plain"][k]), atol=2e-4, rtol=1e-3,
+                                   err_msg=k)
+
+
+def _flat(tree) -> dict:
+    """A JAX gradient pytree as {port parameter name: numpy array}."""
+    return {k.replace("/", "."): v
+            for k, v in flatten_tree(jax.tree_util.tree_map(np.asarray, tree)).items()}
+
+
+def _plain_folded(model, tcfg, x, n):
+    """The plain path's (sdf, feat, grad): clamped on the first n rows,
+    unclamped after, by torch's double backward."""
+    xt = torch.from_numpy(x)
+    s, f, g = tf.sdf_feat_grad(model.implicit, tcfg.implicit, xt[:n])
+    ge = tf.sdf_gradient(model.implicit, tcfg.implicit, xt[n:])
+    raw = tf.implicit_apply(model.implicit, tcfg.implicit, xt[n:])
+    return torch.cat([s, raw[:, :1]]), torch.cat([f, raw[:, 1:]]), torch.cat([g, ge])
 
 
 # -- K3: radiance_norm forward -------------------------------------------------
@@ -295,8 +479,99 @@ def test_k3_plain_matches_jnp_path(models):
     _close(out_t["normals"], n_j)
 
 
-def test_k3_forward_only():
-    ws = [torch.zeros(9, 4, requires_grad=True), torch.zeros(4, 3)]
-    bs = [torch.zeros(4), torch.zeros(3)]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        radiance_norm(ws, bs, torch.zeros(2, 3), torch.zeros(2, 3), torch.zeros(2, 3))
+def test_k3_requires_grad_takes_the_autograd_path():
+    """A weight or input that requires grad routes K3 through its autograd
+    Function (plain versions on the CPU): finite gradients, no launch."""
+    gen = torch.Generator().manual_seed(1)
+    ws = [(0.3 * torch.randn(11, 8, generator=gen)).requires_grad_(),
+          (0.3 * torch.randn(8, 3, generator=gen)).requires_grad_()]
+    bs = [torch.zeros(8, requires_grad=True), torch.zeros(3, requires_grad=True)]
+    g = torch.randn(5, 3, generator=gen).requires_grad_()
+    feat = torch.randn(5, 2, generator=gen).requires_grad_()
+    before = dict(build.launches)
+    rgb, nrm = radiance_norm(ws, bs, g, torch.randn(5, 6, generator=gen), feat)
+    assert type(rgb.grad_fn).__name__ == "_RadianceNormBackward"
+    (rgb.sum() + (nrm * torch.arange(3.0)).sum()).backward()
+    for t in (*ws, *bs, g, feat):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+    assert build.launches == before
+
+
+# -- K3b ---------------------------------------------------------------------
+
+def _k3_bwd_case(dtype, seed=21, n=150):
+    jcfg, tcfg = configs(True)
+    _, model, _ = both_models(jcfg, tcfg)
+    tws, tbs = (list(t.detach() for t in ts) for ts in tf.effective_linear_weights(model.rendering))
+    g, pts, vd, feat = _k3_inputs(n, seed)
+    sv = np.concatenate([pts, np.asarray(positional_encoding(torch.from_numpy(vd), 4))], -1)
+    rng = np.random.default_rng(seed)
+    co, cn = (rng.normal(size=(n, 3)).astype(np.float32) for _ in range(2))
+    return tws, tbs, g, sv, feat, co, cn
+
+
+# The same inputs and cotangents into both. float32: sums in another order,
+# the kernel parameter-grad bar; bf16: operands and the stored hidden layers
+# are bf16 in both; JAX also sums the output layer's bias gradient in bf16
+# per block, and a float32 sum in another order can round a hidden
+# pre-activation to the neighbouring bf16 value, which flips nothing but
+# moves a product by an operand ulp (2^-8 relative).
+@pytest.mark.parametrize("dtype,atol,rtol", [("float32", 2e-4, 1e-3), ("bfloat16", 1e-2, 2e-2)])
+def test_k3_backward_matches_pallas(dtype, atol, rtol):
+    tws, tbs, g, sv, feat, co, cn = _k3_bwd_case(dtype)
+    ds = sv.shape[1]
+    jws, jbs = [jnp.asarray(w.numpy()) for w in tws], [jnp.asarray(b.numpy()) for b in tbs]
+    g128 = jnp.asarray(np.pad(g, ((0, 0), (0, 125))))
+    dws_j, dbs_j, dg_j, df_j, _ = jrgb._radiance_norm_bwd_pallas(
+        jws, jbs, g128, jnp.asarray(sv), jnp.asarray(feat), None, jnp.asarray(co),
+        jnp.asarray(np.pad(cn, ((0, 0), (0, 125)))), ds, JDT[dtype], 64, None)
+    dws_t, dbs_t, dg_t, df_t = radiance_norm_bwd(
+        tws, tbs, *(torch.from_numpy(a) for a in (g, sv, feat, co, cn)), TDT[dtype])
+    assert df_t.dtype == (TDT[dtype] or torch.float32)
+    _grad_close(dws_t, dbs_t, dws_j, dbs_j, atol, rtol)
+    for a, b in ((dg_t, np.asarray(dg_j)[:, :3]), (df_t, df_j)):
+        b = np.asarray(b, np.float32)
+        np.testing.assert_allclose(_np(a), b, atol=atol + rtol * float(np.abs(b).max()), rtol=0)
+
+
+def test_k3_autograd_grads_match_jax_grad_and_double_backward():
+    """The autograd Function's gradients (parameters, g, feat) against
+    jax.grad through the JAX fused radiance path and against torch's
+    autograd of the plain forward, f32 at 2e-4 / 1e-3."""
+    jcfg, tcfg = configs(True)
+    jparams, model, _ = both_models(jcfg, tcfg)
+    g, pts, vd, feat = _k3_inputs(seed=31)
+    w = np.random.default_rng(32).normal(size=(g.shape[0], 3)).astype(np.float32)
+
+    def jloss(p, g, feat):
+        out = jf.rendering_apply_pallas_wide(p, jcfg.rendering, jnp.asarray(pts),
+                                             jnp.pad(g, ((0, 0), (0, 125))), jnp.asarray(vd),
+                                             feat)
+        return jnp.mean((out["rgb"] - 0.4) ** 2) + jnp.mean(out["normals128"][:, :3] * w)
+
+    gj = jax.grad(jloss, argnums=(0, 1, 2))(jparams["rendering"], jnp.asarray(g),
+                                             jnp.asarray(feat))
+
+    def tloss(rgb, nrm):
+        return ((rgb - 0.4) ** 2).mean() + (nrm * torch.from_numpy(w)).mean()
+
+    gt, ft = torch.from_numpy(g).requires_grad_(), torch.from_numpy(feat).requires_grad_()
+    model.zero_grad()
+    out = tf.rendering_apply_pallas_wide(model.rendering, tcfg.rendering, torch.from_numpy(pts),
+                                         gt, torch.from_numpy(vd), ft)
+    tloss(out["rgb"], out["normals"]).backward()
+    # the plain forward with torch's own autograd
+    gp, fp = torch.from_numpy(g).requires_grad_(), torch.from_numpy(feat).requires_grad_()
+    ws, bs = tf.effective_linear_weights(model.rendering)
+    sv = torch.cat([torch.from_numpy(pts), positional_encoding(torch.from_numpy(vd), 4)], -1)
+    rgb_p, n_p = radiance_norm_plain(ws, bs, gp, sv, fp)
+    plain = torch.autograd.grad(tloss(torch.sigmoid(rgb_p), n_p),
+                                [gp, fp, *model.rendering.parameters()])
+    flat_j = _flat(gj[0])
+    assert set(flat_j) == {k for k, _ in model.rendering.named_parameters()}
+    pairs = [("g", gt.grad, gj[1], plain[0]), ("feat", ft.grad, gj[2], plain[1])]
+    pairs += [(k, p.grad, flat_j[k], q) for (k, p), q in
+              zip(model.rendering.named_parameters(), plain[2:])]
+    for k, a, b, c in pairs:
+        np.testing.assert_allclose(_np(a), np.asarray(b), atol=2e-4, rtol=1e-3, err_msg=k)
+        np.testing.assert_allclose(_np(a), _np(c), atol=2e-4, rtol=1e-3, err_msg=k)

@@ -116,12 +116,22 @@ def test_render_samples_at_the_drawn_samples_is_render_rays():
         assert torch.equal(a[k], b[k]), k
 
 
-def test_training_mode_raises():
-    _, tcfg = configs(True)
+@pytest.mark.parametrize("kernels", [True, False], ids=["pallas", "jnp"])
+def test_training_mode_returns_the_eikonal_gradients(kernels):
+    """render_rays(training=True) draws from the generator, keeps the graph
+    and adds grad_theta / grad_theta_nei: (2R, 3) each, the eikonal points'
+    and their neighbours' SDF gradients."""
+    _, tcfg = configs(kernels, sampler=ITERS)
     model = tm.init_monosdf(tcfg, device="cpu")
     rays = {k: torch.from_numpy(v) for k, v in ray_batch(4).items()}
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tm.render_rays(model, tcfg, rays, training=True)
+    out = tm.render_rays(model, tcfg, rays, training=True,
+                         generator=torch.Generator().manual_seed(0))
+    S = tcfg.sampler.total_samples
+    assert out["grad_theta"].shape == out["grad_theta_nei"].shape == (8, 3)
+    assert out["z_vals"].shape == (4, S) and out["rgb_values"].requires_grad
+    assert out["grad_theta"].requires_grad and torch.isfinite(out["grad_theta"]).all()
+    # the neighbours lie within 0.005 per axis of their points: the gradients are close
+    assert (out["grad_theta"] - out["grad_theta_nei"]).abs().max() < 0.5
 
 
 def test_kernel_and_plain_backends_differ_only_in_radiance_input(monkeypatch):

@@ -1,0 +1,334 @@
+"""Parity of the port's training slice with the JAX package.
+
+The sampler's training draws, the MonoSDF loss, Adam with its learning-rate
+decay and the whole training step (render, loss, gradients, update) of the
+port against ``monosdf_tpu``, with the same parameters (carried by the
+weight bridge), rays and random draws: the port takes its draws as
+injected tensors, computed here with the JAX package's own
+``jax.random.split`` tree. With the kernel backends the JAX side runs its
+Pallas kernels in interpret mode and the port each kernel's plain version
+(CPU tensors). Tolerances are stated at each test; float32 throughout.
+The sampler runs 2 of its 5 iterations, as in tests/test_torch_render.py.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import monosdf_tpu.losses as jl
+import monosdf_tpu.models.monosdf as jm
+import monosdf_tpu.ops.sampler as js
+import monosdf_tpu.train as jt
+import monosdf_torch.losses as tl
+import monosdf_torch.models.monosdf as tm
+import monosdf_torch.ops.sampler as ts
+from monosdf_torch.cli import train as ttrain
+from monosdf_torch.params import flatten_tree, load_params_npz
+from monosdf_torch.train import OptimConfig, make_optimizer, make_train_step
+from torch_parity import both_models, configs, ray_batch
+
+ITERS = {"max_total_iters": 2}
+N_RAYS = 8
+
+
+def jax_draws(key, R: int, cfg) -> dict:
+    """The random draws of monosdf_tpu render_rays(training=True) under
+    ``key`` (monosdf.py:135, :219-226; sampler.py:373, :129, :337, :352,
+    :434), as numpy, under the names the port takes them."""
+    k_sampler, k_uni, k_nei = jax.random.split(key, 3)
+    k_init, k_final, k_extra, k_eik = jax.random.split(k_sampler, 4)
+    sc = cfg.sampler
+    n_buf = sc.N_samples_eval * sc.max_total_iters
+    bs = cfg.scene_bounding_sphere
+    d = {
+        "t_rand": jax.random.uniform(k_init, (R, sc.N_samples_eval), dtype=jnp.float32),
+        "u_final": jax.random.uniform(k_final, (R, sc.N_samples), dtype=jnp.float32),
+        "extra_idx": jax.random.permutation(k_extra, n_buf)[: sc.N_samples_extra],
+        "eik_idx": jax.random.randint(k_eik, (R, 1), 0, sc.N_samples + sc.N_samples_extra + 2),
+        "eik_uniform": jax.random.uniform(k_uni, (R, 3), minval=-bs, maxval=bs,
+                                          dtype=jnp.float32),
+        "eik_neigh": jax.random.uniform(k_nei, (2 * R, 3), dtype=jnp.float32),
+    }
+    return {k: np.array(v) for k, v in d.items()}
+
+
+def torch_draws(d: dict) -> dict:
+    return {k: torch.from_numpy(v.astype(np.int64) if v.dtype.kind == "i" else v)
+            for k, v in d.items()}
+
+
+def _batch(n=N_RAYS, seed=0):
+    from monosdf_tpu.data.synthetic import make_synthetic_sphere_scene, sample_ray_batch
+
+    scene = make_synthetic_sphere_scene(n_images=2, img_res=8)
+    b = sample_ray_batch(scene, np.random.default_rng(seed), n)
+    return {k: b[k] for k in ("rays", "gt")}
+
+
+def _to_jax(b):
+    return jax.tree_util.tree_map(jnp.asarray, b)
+
+
+def _to_torch(b):
+    return {k: {kk: torch.from_numpy(np.ascontiguousarray(v)) for kk, v in b[k].items()}
+            for k in ("rays", "gt")}
+
+
+def _grads_np(model) -> dict:
+    return {n: p.grad.numpy().copy() for n, p in model.named_parameters()}
+
+
+def _flat_jax(tree) -> dict:
+    return {k.replace("/", "."): v for k, v in
+            flatten_tree(jax.tree_util.tree_map(np.asarray, tree)).items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(kernels: bool):
+    jcfg, tcfg = configs(kernels, sampler=ITERS)
+    jparams, _, tree = both_models(jcfg, tcfg)
+    return jcfg, tcfg, jparams, tree
+
+
+def _model(tcfg, tree):
+    from monosdf_torch.params import load_jax_params
+
+    return load_jax_params(tm.init_monosdf(tcfg, device="cpu"), tree)
+
+
+# -- the sampler's training draws ---------------------------------------------
+
+# The jnp backends here; the kernel backends' sampler (JAX Pallas K1/K4 in
+# interpret mode) runs inside test_training_step_matches_jax[pallas], whose
+# loss it would move. z_vals behind the surface can move by (float32
+# rounding of the cdf) / pdf where the pdf is ~add_tiny
+# (tests/test_torch_render.py); z_eik is one of them.
+def test_sampler_training_mode_with_jax_draws():
+    jcfg, tcfg, jparams, tree = _setup(False)
+    model = _model(tcfg, tree)
+    rays = ray_batch(N_RAYS, seed=1)
+    key = jax.random.PRNGKey(3)
+    d = jax_draws(key, N_RAYS, jcfg)
+    k_sampler_key = jax.random.split(key, 3)[0]
+
+    def jsample(p, r):
+        beta0 = jnp.abs(p["density"]["beta"]) + jcfg.beta_min
+        return js.error_bound_z_vals(
+            lambda pts: jm.sdf_value(p["implicit"], jcfg.implicit, pts)[..., 0],
+            r["rays_o"], r["rays_d"], beta0, jcfg.sampler, k_sampler_key, True)
+
+    zj, ej = jax.jit(jsample)(jparams, {k: jnp.asarray(v) for k, v in rays.items()})
+    rt = {k: torch.from_numpy(v) for k, v in rays.items()}
+    beta0 = torch.abs(model.density.beta.detach()) + tcfg.beta_min
+    zt, et = ts.error_bound_z_vals(
+        lambda pts: tm.sdf_value(model.implicit, tcfg.implicit, pts)[..., 0],
+        rt["rays_o"], rt["rays_d"], beta0, tcfg.sampler, True, torch_draws(d))
+    assert zt.shape == zj.shape and et.shape == (N_RAYS, 1)
+    np.testing.assert_allclose(zt.numpy(), np.asarray(zj), atol=1e-3)
+    np.testing.assert_allclose(et.numpy(), np.asarray(ej), atol=1e-3)
+    assert np.mean(np.abs(zt.numpy() - np.asarray(zj)) < 1e-5) > 0.97
+
+
+def test_training_draws_come_from_the_generator_when_not_given():
+    _, tcfg, _, _ = _setup(True)
+    g1, g2 = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
+    a = ts.training_draws(4, tcfg.sampler, generator=g1)
+    b = ts.training_draws(4, tcfg.sampler, {"u_final": a["u_final"] + 1}, generator=g2)
+    assert a.keys() == b.keys() == {"t_rand", "u_final", "extra_idx", "eik_idx"}
+    assert torch.equal(a["t_rand"], b["t_rand"]) and not torch.equal(a["u_final"], b["u_final"])
+    sc = tcfg.sampler
+    assert a["extra_idx"].unique().numel() == sc.N_samples_extra
+    assert int(a["eik_idx"].max()) < sc.total_samples
+
+
+# -- the loss ---------------------------------------------------------------
+
+def _loss_inputs(seed=0, R=16, S=12):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    sdf = f(R, S)
+    sdf[:3] = np.abs(sdf[:3])  # rays that do not cross the surface
+    outs = {"rgb_values": rng.uniform(0, 1, (R, 3)).astype(np.float32),
+            "depth_values": rng.uniform(0.5, 2, (R, 1)).astype(np.float32),
+            "normal_map": f(R, 3), "sdf": sdf, "grad_theta": f(2 * R, 3),
+            "grad_theta_nei": f(2 * R, 3)}
+    outs["normal_map"][5] = 0.0  # a zero normal: the guarded norms
+    gt = {"rgb": rng.uniform(0, 1, (R, 3)).astype(np.float32),
+          "depth": rng.uniform(0, 1, (R, 1)).astype(np.float32),
+          "normal": f(R, 3), "mask": (rng.uniform(size=(R, 1)) > 0.2).astype(np.float32)}
+    return outs, gt
+
+
+# float32 values and gradients of the same formulas, sums in another order
+@pytest.mark.parametrize("cfg_kw,step", [({}, 0), ({"rgb_loss": "mse", "if_gamma_loss": True,
+                                                   "end_step": 100}, 30),
+                                         ({"if_scale_invariant_depth": False}, 0)])
+def test_monosdf_loss_value_and_gradients(cfg_kw, step):
+    outs, gt = _loss_inputs()
+    diff = ("rgb_values", "depth_values", "normal_map", "grad_theta", "grad_theta_nei")
+
+    def jfun(o):
+        return jl.monosdf_loss(jl.LossConfig(**cfg_kw), {**outs, **o}, gt, step)
+
+    jo = {k: jnp.asarray(outs[k]) for k in diff}
+    jv = jax.jit(jfun)(jo)
+    jg = jax.jit(jax.grad(lambda o: jfun(o)["loss"]))(jo)
+    to = {k: torch.from_numpy(v).requires_grad_(k in diff) for k, v in outs.items()}
+    tv = tl.monosdf_loss(tl.LossConfig(**cfg_kw), to, {k: torch.from_numpy(v) for k, v in
+                                                       gt.items()}, step)
+    tv["loss"].backward()
+    for k in jv:
+        np.testing.assert_allclose(tv[k].item(), float(jv[k]), rtol=1e-5, atol=1e-6, err_msg=k)
+    for k in diff:
+        np.testing.assert_allclose(to[k].grad.numpy(), np.asarray(jg[k]), rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+
+
+# -- Adam and its schedule --------------------------------------------------
+
+def test_adam_and_lr_schedule_match_optax_over_three_steps():
+    """The same gradients three times into both optimizers; decay_steps 2 so
+    the learning rate falls visibly. float32: the bias corrections are taken
+    in another order (eps outside the square root in both)."""
+    rng = np.random.default_rng(0)
+    p0 = {"a": rng.normal(size=(5, 4)).astype(np.float32), "b": rng.normal(size=7).astype(np.float32)}
+    grads = [{k: rng.normal(size=v.shape).astype(np.float32) * 10 ** (i - 1) for k, v in p0.items()}
+             for i in range(3)]
+    ocfg = dict(learning_rate=1e-2, decay_steps=2)
+    jopt = jt.make_optimizer(jt.OptimConfig(**ocfg))
+    jp = jax.tree_util.tree_map(jnp.asarray, p0)
+    state = jopt.init(jp)
+    jupdate = jax.jit(jopt.update)
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in p0.items()}
+    adam, sched = make_optimizer(OptimConfig(**ocfg), list(tp.values()))
+    for g in grads:
+        upd, state = jupdate(jax.tree_util.tree_map(jnp.asarray, g), state, jp)
+        jp = jax.tree_util.tree_map(lambda a, u: a + u, jp, upd)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k])
+        adam.step()
+        sched.step()
+        for k in p0:
+            np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]), rtol=1e-6,
+                                       atol=1e-7, err_msg=k)
+    assert sched.get_last_lr()[0] == pytest.approx(1e-2 * 0.25 ** 1.5, rel=1e-6)
+    with pytest.raises(NotImplementedError):
+        make_optimizer(OptimConfig(grid_mode=True), list(tp.values()))
+
+
+# -- the training step ------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _jax_train_step(kernels: bool):
+    """JAX make_train_step of the config, jitted once for the tests that use it."""
+    jcfg = _setup(kernels)[0]
+    jopt = jt.make_optimizer(jt.OptimConfig())
+    return jopt, jax.jit(jt.make_train_step(jcfg, jl.LossConfig(), jopt))
+
+
+def _jax_steps(kernels, jparams, batches, keys):
+    """The JAX training state after one step per batch, and each step's metrics."""
+    jopt, step = _jax_train_step(kernels)
+    state = jt.init_train_state(jparams, jopt)
+    metrics = []
+    for b, k in zip(batches, keys):
+        state, m = step(state, _to_jax(b), k)
+        metrics.append({kk: float(v) for kk, v in m.items()})
+    return state, metrics
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_value_and_grad(kernels: bool):
+    """make_train_step's loss_fn (monosdf_tpu/train/step.py:42-53) under
+    jax.value_and_grad, jitted once."""
+    jcfg = _setup(kernels)[0]
+
+    def loss_fn(params, batch, key):
+        out = jm.render_rays(params, jcfg, batch["rays"], key, training=True)
+        losses = jl.monosdf_loss(jl.LossConfig(), out, batch["gt"], 0)
+        mse = jnp.mean((out["rgb_values"] - batch["gt"]["rgb"]) ** 2)
+        losses["psnr"] = -10.0 * jnp.log(mse) / jnp.log(10.0)
+        return losses["loss"], losses
+
+    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+
+
+# Loss and its terms (rtol 1e-5; the depth term 1e-4: its scale/shift solve
+# over the batch's 8 rays amplifies the rendered depths' float32 rounding),
+# every parameter gradient (at tests/test_pallas_sdf_grad.py:224-226's bar,
+# 5e-4 / 2e-3: the render's gradient sums over samples and rays) and the
+# parameters after one Adam step, within 1% of its lr 5e-4 (the first Adam
+# step moves a parameter by lr g / (|g| + 1e-8): gradients that agree to
+# float32 rounding give the same move unless |g| is near 1e-8).
+@pytest.mark.parametrize("kernels", [True, False], ids=["pallas", "jnp"])
+def test_training_step_matches_jax(kernels):
+    jcfg, tcfg, jparams, tree = _setup(kernels)
+    batch = _batch(seed=2)
+    key = jax.random.PRNGKey(7)
+    (_, mj), gj = _jax_value_and_grad(kernels)(jparams, _to_jax(batch), key)
+    jopt = jt.make_optimizer(jt.OptimConfig())
+    upd, _ = jopt.update(gj, jopt.init(jparams), jparams)
+    pj = _flat_jax(jax.tree_util.tree_map(lambda a, u: a + u, jparams, upd))
+
+    draws = torch_draws(jax_draws(key, N_RAYS, jcfg))
+    tb = _to_torch(batch)
+    model = _model(tcfg, tree)
+    out = tm.render_rays(model, tcfg, tb["rays"], training=True, draws=draws)
+    assert out["grad_theta"].shape == out["grad_theta_nei"].shape == (2 * N_RAYS, 3)
+    tl.monosdf_loss(tl.LossConfig(), out, tb["gt"], 0)["loss"].backward()
+    grads, gjf = _grads_np(model), _flat_jax(gj)
+    assert grads.keys() == gjf.keys()
+    for k in grads:
+        np.testing.assert_allclose(grads[k], gjf[k], atol=5e-4, rtol=2e-3, err_msg=k)
+
+    model = _model(tcfg, tree)
+    step = make_train_step(tcfg, tl.LossConfig(), make_optimizer(OptimConfig(),
+                                                                  model.parameters()))
+    mt = step(model, tb, draws=draws)
+    for k in ("loss", "rgb_loss", "eikonal_loss", "smooth_loss", "normal_l1", "normal_cos",
+              "psnr", "depth_loss"):
+        np.testing.assert_allclose(mt[k].item(), float(mj[k]), atol=1e-6,
+                                   rtol=1e-4 if k == "depth_loss" else 1e-5, err_msg=k)
+    for n, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), pj[n], atol=5e-6, rtol=0, err_msg=n)
+
+
+def test_three_step_loss_trajectory_matches_jax():
+    """Three steps of JAX make_train_step and of the port's on distinct
+    batches and draws, kernel backends: the losses follow JAX's at 1e-4
+    (each step starts from parameters that agree to float32 rounding of the
+    update), and so do the parameters after them."""
+    jcfg, tcfg, jparams, tree = _setup(True)
+    batches = [_batch(seed=10 + i) for i in range(3)]
+    keys = [jax.random.PRNGKey(20 + i) for i in range(3)]
+    state, mj = _jax_steps(True, jparams, batches, keys)
+    model = _model(tcfg, tree)
+    step = make_train_step(tcfg, tl.LossConfig(), make_optimizer(OptimConfig(),
+                                                                  model.parameters()))
+    lt = [float(step(model, _to_torch(b), draws=torch_draws(jax_draws(k, N_RAYS, jcfg)))["loss"])
+          for b, k in zip(batches, keys)]
+    np.testing.assert_allclose(lt, [m["loss"] for m in mj], rtol=1e-4)
+    assert len(set(lt)) == 3
+    # and the parameters after the three steps, within 10% of the lr 5e-4:
+    # each step moves a parameter by about lr, and an element whose gradient
+    # is near Adam's eps takes a different share of that move from float32
+    # differences in its gradient (measured 1.5e-5); a wrong step would be
+    # off by up to 2 lr
+    pj = _flat_jax(state.params)
+    for n, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), pj[n], atol=5e-5, rtol=0, err_msg=n)
+
+
+def test_train_cli_writes_npz(tmp_path):
+    out = tmp_path / "p.npz"
+    hist = ttrain.main(["--device", "cpu", "--steps", "2", "--rays", "4", "--n_images", "1",
+                        "--img_res", "4", "--compute_dtype", "float32", "--out", str(out)])
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    tree = load_params_npz(out)
+    model = tm.init_monosdf(ttrain.bench_mlp_config("float32"), device="cpu")
+    assert set(flatten_tree(tree)) == {n.replace(".", "/") for n, _ in model.named_parameters()}
