@@ -3,15 +3,19 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --kernels  # build and check the kernels only
 
-Phases (any failure exits non-zero):
+Two models: the bench's ScanNet-MLP model (bench.py) and its hash-grid
+model (bench.py --grids). Phases (any failure exits non-zero):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the six kernels from monosdf_torch/csrc with nvcc for sm_90a, one
+2. build the ten kernels from monosdf_torch/csrc with nvcc for sm_90a, one
    nvcc per source, all at once;
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, and time kernel and plain version (CUDA events):
    the forwards at the shapes of one 1024-ray render chunk of the bench's
    ScanNet-MLP model, K2's training forward (clamp_rows, flag, saved Z) and
    K2b at the training step's 104,448 points, K3b at its 100,352 samples;
+   for the grid model K6 at the sweeps' 131,072 points (6 levels) and at
+   the step's 104,448 points (16 levels, with tangents), K5, K7f and K7b at
+   104,448 points, K1 at the grid trunk's 71-wide input;
 4. render 4 synthetic 64x64 views through cli/eval.py at full width
    (geometric init plus seeded noise) with the kernels, counting launches
    (K1 = K4 = 5 and K2 = K3 = 1 per chunk); render every chunk again with
@@ -26,9 +30,14 @@ Phases (any failure exits non-zero):
    each kernel's plain version in its place, compared, in bf16 and float32;
 6. profile the render chunk and one training step (torch.profiler): device
    time per kernel, busy share;
-7. print a ``render`` and a ``train`` JSON line, the ``kernels`` JSON line,
-   the card line (nvidia-smi's name and power limit), and last the result
-   line.
+7. the grid model: 4 views through cli/eval.py --grids (launches per
+   chunk K1 = K4 = 4, K6 = 5, K7f = 1) with the like-for-like checks of
+   phase 4; 3 warm-up and 20 timed steps of cli/train.py --grids (K1 = K4
+   = 4, K6 = 5, K7f = K7b = K5 = 1 per step) and the step check of phase 5,
+   the table's gradient included; a profile of a grid chunk and step;
+8. print a ``render``, a ``train``, a ``render_grids`` and a
+   ``train_grids`` JSON line, the ``kernels`` JSON line, the card line
+   (nvidia-smi's name and power limit), and last the result line.
 """
 
 from __future__ import annotations
@@ -56,11 +65,20 @@ TPU_KERNELS = {
     "radiance_norm": "monosdf_tpu/ops/pallas_rgb_grad.py:708",
     "sdf_grad_bwd": "monosdf_tpu/ops/pallas_sdf_grad.py:713",
     "radiance_norm_bwd": "monosdf_tpu/ops/pallas_rgb_grad.py:889",
+    "hash_encode": "monosdf_tpu/ops/pallas_fold.py:353",
+    "hash_encode_bwd": "monosdf_tpu/ops/pallas_fold.py:196",
+    "sdf_grad_grid": "monosdf_tpu/ops/pallas_sdf_grad_grid.py:165",
+    "sdf_grad_grid_bwd": "monosdf_tpu/ops/pallas_sdf_grad_grid.py:351",
 }
-PER_CHUNK = {"sdf_mlp": 5, "sampler_machinery": 5, "sdf_grad": 1, "radiance_norm": 1,
-             "sdf_grad_bwd": 0, "radiance_norm_bwd": 0}
-PER_STEP = {"sdf_mlp": 5, "sampler_machinery": 5, "sdf_grad": 1, "radiance_norm": 1,
-            "sdf_grad_bwd": 1, "radiance_norm_bwd": 1}
+_NONE = dict.fromkeys(TPU_KERNELS, 0)
+PER_CHUNK = {**_NONE, "sdf_mlp": 5, "sampler_machinery": 5, "sdf_grad": 1, "radiance_norm": 1}
+PER_STEP = {**PER_CHUNK, "sdf_grad_bwd": 1, "radiance_norm_bwd": 1}
+# the grid model: 4 sampler sweeps (K1 on [PE | K6 features of 6 levels])
+# and 4 machinery calls, one differentiated encode (K6) and trunk (K7f);
+# training adds K7b and the table gradient K5
+PER_CHUNK_GRIDS = {**_NONE, "sdf_mlp": 4, "sampler_machinery": 4, "hash_encode": 5,
+                   "sdf_grad_grid": 1}
+PER_STEP_GRIDS = {**PER_CHUNK_GRIDS, "sdf_grad_grid_bwd": 1, "hash_encode_bwd": 1}
 WARMUP_STEPS, TIMED_STEPS = 3, 20
 # stated tolerances, kernel vs plain version on the card: err <= atol + rtol * max|plain|;
 # bf16: a rounding that lands on the neighbouring bf16 value (ulp 2^-7 at 1)
@@ -94,6 +112,19 @@ RENDER_LIKE_MAX_ABS = {
 # another order, so a rounding lands on the neighbouring bf16 value (2^-8
 # relative) now and then. K3b's dg uses the same bar, its df TOL.
 GRAD_TOL = {"float32": (2e-4, 1e-3), "bfloat16": (1e-2, 2e-2)}
+# K6 (the encode) vs its plain version, per tensor: both read the same corner
+# values (float32 or bf16) and combine them in float32 with float32 weights,
+# so a bf16 table holds at the float32 bar too; the features (~1e-2 here)
+# stay well above it, so a zero or wrong-row output cannot pass.
+ENCODE_TOL = (1e-4, 1e-4)
+# K5 (the table gradient) row by row, |a - b| <= atol + rtol * S, S the sum
+# over the corner terms added into that row of the magnitudes each is made
+# from, |c_feat| W + sum_k |c_tg_k| |dW/dx_k| (a term's parts cancel, so
+# its float32 rounding scales with them, not with the term). float32: that
+# rounding and the atomics' run-dependent order (below n 2^-24 S for a row
+# of n <= ~1e3 terms); bf16: besides, a term rounded to bf16 may land on the
+# neighbouring value (one ulp, <= 2^-7 of the term).
+ENCODE_BWD_TOL = {"float32": (1e-6, 1e-4), "bfloat16": (1e-6, 2**-7 + 1e-4)}
 # the like-for-like training step (kernels vs plain versions at fixed
 # samples): float32 element by element, |a - b| <= atol + rtol * |b|, the
 # JAX package's bar for kernel parameter gradients (ROADMAP.md Tolerances;
@@ -160,15 +191,18 @@ _KERNEL_FNS: dict = {}  # (module, name) -> the kernel wrapper there, saved at t
 
 def use_plain_versions(on: bool):
     """Point the kernel path's call sites at each kernel's plain version
-    (``on``) or back at the kernel wrappers: the sweeps' K1 and the
-    sampler's K4, and inside the K2 and K3 modules the forward that both the
-    no-grad call and the autograd Function run, and the backward that the
-    Function's backward runs. A wrapper launches its kernel on a CUDA
-    tensor, so this is how the card runs the kernel path's own composition
-    with the plain versions."""
+    (``on``) or back at the kernel wrappers: the sweeps' K1 and K6 and the
+    sampler's K4, inside the K2, K3 and K7 modules the forward that both the
+    no-grad call and the autograd Function run and the backward that the
+    Function's backward runs, and inside the K6/K5 module the encode and
+    table gradient that its autograd Function runs. A wrapper launches its
+    kernel on a CUDA tensor, so this is how the card runs the kernel path's
+    own composition with the plain versions."""
+    from monosdf_torch.kernels import hash_encode as k6
     from monosdf_torch.kernels import radiance_norm as k3
     from monosdf_torch.kernels import sampler_machinery as k4
     from monosdf_torch.kernels import sdf_grad as k2
+    from monosdf_torch.kernels import sdf_grad_grid as k7
     from monosdf_torch.kernels import sdf_mlp as k1
     from monosdf_torch.models import fields
     from monosdf_torch.ops import sampler
@@ -176,11 +210,16 @@ def use_plain_versions(on: bool):
     for mod, name, plain in (
         # the sweeps hand K1 its packed weights, which the plain version has no use for
         (fields, "sdf_mlp", lambda *a, packed=None, **kw: k1.sdf_mlp_plain(*a, **kw)),
+        (fields, "hash_encode_fwd", k6.hash_encode_fwd_plain),
         (sampler, "sampler_iter_machinery", k4.sampler_iter_machinery_plain),
         (k2, "_forward", k2.sdf_mlp_with_grad_plain),
         (k2, "sdf_mlp_with_grad_bwd", k2.sdf_mlp_with_grad_bwd_plain),
         (k3, "_forward", k3.radiance_norm_plain),
         (k3, "radiance_norm_bwd", k3.radiance_norm_bwd_plain),
+        (k6, "hash_encode_fwd", k6.hash_encode_fwd_plain),
+        (k6, "hash_encode_bwd", k6.hash_encode_bwd_plain),
+        (k7, "_forward", k7.sdf_mlp_with_grad_in_plain),
+        (k7, "sdf_mlp_with_grad_in_bwd", k7.sdf_mlp_with_grad_in_bwd_plain),
     ):
         kernel = _KERNEL_FNS.setdefault((mod, name), getattr(mod, name))
         setattr(mod, name, plain if on else kernel)
@@ -443,6 +482,195 @@ def training_kernel_checks(model, cfg, dev, results):
         fail("a training kernel disagrees with its plain version beyond the stated tolerance")
 
 
+def _row_ratio(d, dp, gcfg, x, c_feat, c_tg, tangent_scale, atol, rtol):
+    """K5 against its plain version row by row: the worst |d - dp| / (atol +
+    rtol * S), and the largest max abs err. S is each row's sum, over the
+    corner terms added into it, of |c_feat| W + sum_k |c_tg_k| |dW/dx_k|:
+    the magnitude each term is summed from, which scales its float32
+    rounding where the parts cancel."""
+    from monosdf_torch.ops.hashgrid import corner_geometry, corner_weights
+
+    if not torch.isfinite(d).all():
+        fail(f"non-finite kernel output of shape {tuple(d.shape)}")
+    N, L = x.shape[0], gcfg.num_levels
+    idx, w, dw, inb = corner_geometry(gcfg, x, 1.0, L, tangent_scale)
+    W, dW = corner_weights(w, dw)
+    cf = (c_feat.reshape(N, L, 2).abs() * inb[:, None, None]).permute(1, 0, 2)
+    ct = (c_tg.reshape(3, N, L, 2).abs() * inb[None, :, None, None]).permute(0, 2, 1, 3)
+    mag = W[..., None] * cf[None] + torch.einsum("jcln,jlnd->clnd", dW.abs(), ct)
+    s = torch.zeros(gcfg.table_size, 2, device=d.device).index_add_(
+        0, idx.reshape(-1), mag.reshape(-1, 2)).reshape(-1)
+    err = (d - dp).abs()
+    return float((err / (atol + rtol * s)).max()), float(err.max())
+
+
+def _table_sectors(gcfg, x, n_levels: int, row_bytes: int) -> int:
+    """The distinct 32-byte sectors of the table that the encode of x reads
+    (corner rows of in-box points), each read once at least."""
+    from monosdf_torch.ops.hashgrid import corner_geometry
+
+    idx, _, _, inb = corner_geometry(gcfg, x, 1.0, n_levels)
+    rows = idx[:, :, inb > 0]
+    return int(torch.unique((rows * row_bytes) // 32).numel())
+
+
+def grid_kernel_checks(dev, results):
+    """Phase 3 for the grid model (bench.py --grids): K6 at the sweeps' and
+    the step's shapes, K5, K7f and K7b at the step's 104,448 points, K1 at
+    the grid trunk's 71-wide input, each against its plain version in
+    float32 and bf16 (tables read at that dtype); times, bounds and, for
+    K5, the time of one index_add_ of its per-corner terms."""
+    from monosdf_torch.cli.eval import bench_grids_config
+    from monosdf_torch.kernels import hash_encode as k6
+    from monosdf_torch.kernels import sdf_grad_grid as k7
+    from monosdf_torch.kernels import sdf_mlp as k1
+    from monosdf_torch.kernels.sdf_grad import pe_with_tangents
+    from monosdf_torch.models.fields import effective_linear_weights, sweep_weights
+    from monosdf_torch.ops.embedder import positional_encoding
+
+    rng = np.random.default_rng(SEED + 4)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    cfgs = {d: bench_grids_config(d) for d in ("float32", "bfloat16")}
+    cfg = cfgs["bfloat16"]
+    imp = cfg.implicit
+    df, K = imp.divide_factor, cfg.sweep_max_level
+    n_sweep = CHUNK * cfg.sampler.N_samples_eval
+    N = CHUNK * cfg.sampler.total_samples + 4 * CHUNK
+    L2 = imp.grid.output_dim
+    model = perturbed_model(cfg, dev)
+    ok = True
+    errs = {n: {} for n in ("hash_encode_sweep", "hash_encode", "hash_encode_bwd", "sdf_grad_grid",
+                            "sdf_grad_grid_bwd", "sdf_mlp_grid")}
+    with torch.no_grad():
+        emb = model.implicit.encoding.embeddings.reshape(-1)
+        tables = {"float32": emb.contiguous(), "bfloat16": emb.to(torch.bfloat16)}
+        # the scene box [-1.1, 1.1]^3 and a little beyond, as the encoder sees it (x / 1.1)
+        x_sw = t(rng.uniform(-1.12, 1.12, (n_sweep, 3)))
+        x = t(rng.uniform(-1.12, 1.12, (N, 3)))
+        xs_sw, xs = x_sw / df, x / df
+        cf, ct = t(rng.normal(size=(N, L2))), t(rng.normal(size=(3, N, L2)))
+        ws, bs = effective_linear_weights(model.implicit)
+        sws, sbs, packed = sweep_weights(model.implicit, imp)
+        F = ws[-1].shape[1] - 1
+        cots = [t(rng.normal(size=(N, k))) for k in (1, F, 3)]
+        pe, pe_t = pe_with_tangents(x, imp.multires)
+        pe_sw = positional_encoding(x_sw, imp.multires)
+
+        def a0_of(feat, tg):
+            return torch.cat([torch.cat([pe, feat], -1)[None],
+                              torch.cat([pe_t.reshape(3, N, -1), tg], -1)], 0).contiguous()
+
+        for dname, d in (("float32", None), ("bfloat16", torch.bfloat16)):
+            g, tab = cfgs[dname].implicit.grid, tables[dname]
+            f_sw = k6.hash_encode_fwd(tab, g, xs_sw, 1.0, K)
+            r_sw, e_sw = _ratio([(f_sw, k6.hash_encode_fwd_plain(tab, g, xs_sw, 1.0, K))],
+                                *ENCODE_TOL)
+            feat, tg = k6.hash_encode_fwd(tab, g, xs, 1.0, None, True, 1.0 / df)
+            fp, tp = k6.hash_encode_fwd_plain(tab, g, xs, 1.0, None, True, 1.0 / df)
+            r_f, e_f = _ratio([(feat, fp), (tg, tp)], *ENCODE_TOL)
+            del fp, tp
+            db = k6.hash_encode_bwd(g, xs, cf, ct, 1.0, 1.0 / df)
+            dbp = k6.hash_encode_bwd_plain(g, xs, cf, ct, 1.0, 1.0 / df)
+            r_b, e_b = _row_ratio(db, dbp, g, xs, cf, ct, 1.0 / df, *ENCODE_BWD_TOL[dname])
+            nz = int((dbp != 0).sum())
+            del db, dbp
+            a0 = a0_of(feat, tg)
+            out = k7._forward(ws, bs, a0, d, True)
+            ref = k7.sdf_mlp_with_grad_in_plain(ws, bs, a0, d, True)
+            r_7f, e_7f = _ratio([*zip(out[:3], ref[:3]), *zip(out[3], ref[3])], *TOL[dname])
+            zs = out[3]
+            del out, ref
+            dws, dbs, da0 = k7.sdf_mlp_with_grad_in_bwd(ws, bs, a0, zs, *cots, d)
+            pws, pbs, pda0 = k7.sdf_mlp_with_grad_in_bwd_plain(ws, bs, a0, zs, *cots, d)
+            r_7b, e_7b = _ratio(zip([*dws, *dbs, da0], [*pws, *pbs, pda0]), *GRAD_TOL[dname])
+            del dws, dbs, da0, pws, pbs, pda0, zs, a0
+            inp = torch.cat([pe_sw, f_sw], -1)
+            r_1, e_1 = _ratio([(k1.sdf_mlp(sws, sbs, inp, (), d, packed=packed),
+                                k1.sdf_mlp_plain(sws, sbs, inp, (), d))], *TOL[dname])
+            for name, r, e, extra in (
+                    ("hash_encode_sweep", r_sw, e_sw, f" ({K} of 16 levels)"),
+                    ("hash_encode", r_f, e_f, " (features and tangents)"),
+                    ("hash_encode_bwd", r_b, e_b, f" (row by row; table rows touched {nz // 2})"),
+                    ("sdf_grad_grid", r_7f, e_7f, ""), ("sdf_grad_grid_bwd", r_7b, e_7b, ""),
+                    ("sdf_mlp_grid", r_1, e_1, " (71-wide input)")):
+                print(f"check {name:17s} {dname:8s} max_abs_err {e:.3e}; worst err / tolerance "
+                      f"{r:.3e}{extra} {'ok' if r <= 1.0 else 'FAIL'}", flush=True)
+                ok = ok and r <= 1.0
+                errs[name][dname] = e
+            del feat, tg, f_sw, inp
+
+        # times at bf16, per launch, and the bounds of this run's inputs
+        g, tab, bf = cfg.implicit.grid, tables["bfloat16"], torch.bfloat16
+        feat, tg = k6.hash_encode_fwd(tab, g, xs, 1.0, None, True, 1.0 / df)
+        a0 = a0_of(feat, tg)
+        zs = k7._forward(ws, bs, a0, bf, True)[3]
+        inp = torch.cat([pe_sw, k6.hash_encode_fwd(tab, g, xs_sw, 1.0, K)], -1)
+        rows, u = k6.corner_terms(g, xs, cf, ct, 1.0, 1.0 / df)
+        dlib = torch.zeros(g.table_size, 2, dtype=torch.float32, device=dev)
+        timed = {
+            "hash_encode": (lambda: k6.hash_encode_fwd(tab, g, xs, 1.0, None, True, 1.0 / df),
+                            lambda: k6.hash_encode_fwd_plain(tab, g, xs, 1.0, None, True, 1.0 / df)),
+            "hash_encode_sweep": (lambda: k6.hash_encode_fwd(tab, g, xs_sw, 1.0, K),
+                                  lambda: k6.hash_encode_fwd_plain(tab, g, xs_sw, 1.0, K)),
+            "hash_encode_bwd": (lambda: k6.hash_encode_bwd(g, xs, cf, ct, 1.0, 1.0 / df),
+                                lambda: k6.hash_encode_bwd_plain(g, xs, cf, ct, 1.0, 1.0 / df)),
+            "sdf_grad_grid": (lambda: k7._forward(ws, bs, a0, bf, True),
+                              lambda: k7.sdf_mlp_with_grad_in_plain(ws, bs, a0, bf, True)),
+            "sdf_grad_grid_bwd": (
+                lambda: k7.sdf_mlp_with_grad_in_bwd(ws, bs, a0, zs, *cots, bf),
+                lambda: k7.sdf_mlp_with_grad_in_bwd_plain(ws, bs, a0, zs, *cots, bf)),
+            "sdf_mlp_grid": (lambda: k1.sdf_mlp(sws, sbs, inp, (), bf, packed=packed),
+                             lambda: k1.sdf_mlp_plain(sws, sbs, inp, (), bf)),
+        }
+        ms = {n: (cuda_ms(kf, reps=5), cuda_ms(pf, reps=2, warmup=1)) for n, (kf, pf) in timed.items()}
+        lib_ms = cuda_ms(lambda: dlib.index_add_(0, rows, u), reps=5)
+        sec = _table_sectors(g, xs, g.num_levels, 4)
+        sec_sw = _table_sectors(g, xs_sw, K, 4)
+        z_bytes, w_bytes = nbytes(*zs), nbytes(*ws, *bs)
+        del rows, u, dlib, zs
+
+    kin_l, n_l = ws[-1].shape
+    k7f_flops = mlp_flops(ws[:-1], 4 * N) + 2.0 * N * kin_l * n_l + 2.0 * 3 * N * kin_l
+    per_pl = 8 * (2 * 2 * 4) + 8 * 10 + 30  # 8 corners' weights, 2 channels x 4 sums, geometry
+    bounds = {
+        "hash_encode": bound_ms(N * 16 * per_pl, N * 12 + N * L2 * 4 * 4 + sec * 32, H100_F32_FLOPS),
+        "hash_encode_sweep": bound_ms(n_sweep * K * (8 * 4 + 8 * 4 + 30),
+                                      n_sweep * 12 + n_sweep * L2 * 4 + sec_sw * 32,
+                                      H100_F32_FLOPS),
+        "hash_encode_bwd": bound_ms(N * 16 * 8 * (2 * 4 * 2), N * 12 + N * L2 * 4 * 4
+                                    + g.table_size * 2 * 4, H100_F32_FLOPS),
+        "sdf_grad_grid": bound_ms(k7f_flops, nbytes(a0) + N * (4 + F * 2 + 12) + z_bytes
+                                  + w_bytes, H100_BF16_FLOPS),
+        "sdf_grad_grid_bwd": bound_ms(2 * k7f_flops, nbytes(a0) + z_bytes + N * (1 + F + 3) * 2
+                                      + nbytes(a0) + 2 * w_bytes, H100_BF16_FLOPS),
+        "sdf_mlp_grid": bound_ms(mlp_flops(sws, n_sweep), n_sweep * (inp.shape[1] * 2 + 4)
+                                 + nbytes(*sws, *sbs), H100_BF16_FLOPS),
+    }
+    for name in ("hash_encode", "hash_encode_bwd", "sdf_grad_grid", "sdf_grad_grid_bwd"):
+        (b, by), (k, pl) = bounds[name], ms[name]
+        results[name] = {"max_abs_err": errs[name]["bfloat16"],
+                         "max_abs_err_f32": errs[name]["float32"], "ms": k, "plain_ms": pl,
+                         "bound_ms": b, "bound_by": by, "library_ms": None}
+    (b, by), (k, pl) = bounds["hash_encode_sweep"], ms["hash_encode_sweep"]
+    results["hash_encode"].update(ms_sweep=k, plain_ms_sweep=pl, bound_ms_sweep=b,
+                                  bound_by_sweep=by,
+                                  max_abs_err_sweep=errs["hash_encode_sweep"]["bfloat16"],
+                                  max_abs_err_sweep_f32=errs["hash_encode_sweep"]["float32"],
+                                  table_sectors=sec, table_sectors_sweep=sec_sw)
+    results["hash_encode_bwd"]["library_ms"] = lib_ms
+    (b, by), (k, pl) = bounds["sdf_mlp_grid"], ms["sdf_mlp_grid"]
+    results["sdf_mlp"].update(ms_grid=k, plain_ms_grid=pl, bound_ms_grid=b, bound_by_grid=by,
+                              max_abs_err_grid=errs["sdf_mlp_grid"]["bfloat16"],
+                              max_abs_err_grid_f32=errs["sdf_mlp_grid"]["float32"])
+    print(f"grid kernels (bf16, ms per launch; library index_add_ {lib_ms:.3f} ms): "
+          f"{json.dumps({n: {'ms': v[0], 'plain_ms': v[1], 'bound_ms': bounds[n][0]} for n, v in ms.items()})}",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("a grid kernel disagrees with its plain version beyond the stated tolerance")
+
+
 def chunks_of(frames) -> list:
     """The 1024-ray chunks of every frame, as cli/eval.py cuts them."""
     out = []
@@ -453,19 +681,22 @@ def chunks_of(frames) -> list:
     return out
 
 
-def render_phase(dev):
-    """Phase 4: full-width renders through cli/eval.py, then chunk by chunk
-    with the plain versions in place. Returns the timings and, per dtype,
-    the model and one chunk for the profile phase."""
-    from monosdf_torch.cli.eval import OUTPUT_KEYS, bench_mlp_config, evaluate, scene_frames
+def render_phase(dev, grids: bool = False):
+    """Phase 4 (phase 7 with ``grids``): full-width renders of the bench's
+    MLP (or grid) model through cli/eval.py, then chunk by chunk with the
+    plain versions in place. Returns the timings and, per dtype, the model
+    and one chunk for the profile phase."""
+    from monosdf_torch.cli.eval import OUTPUT_KEYS, bench_config, evaluate, scene_frames
     from monosdf_torch.data.synthetic import make_synthetic_sphere_scene
     from monosdf_torch.kernels import build
     from monosdf_torch.models.monosdf import render_rays, render_samples
 
     frames = scene_frames(make_synthetic_sphere_scene(n_images=4, img_res=64), dev)
+    per_chunk = PER_CHUNK_GRIDS if grids else PER_CHUNK
+    tag = "render grids" if grids else "render"
     info, runs = {}, {}
     for dname in ("bfloat16", "float32"):
-        cfg = bench_mlp_config(dname)
+        cfg = bench_config(grids, dname)
         model = perturbed_model(cfg, dev)
         run_frames = frames if dname == "bfloat16" else frames[:2]
         chunks = chunks_of(run_frames)
@@ -478,17 +709,17 @@ def render_phase(dev):
         torch.cuda.synchronize()
         t_k = time.perf_counter() - t0
         counts = dict(build.launches)
-        expect = {k: v * len(chunks) for k, v in PER_CHUNK.items()}
-        print(f"render {dname}: {len(run_frames)} views, {len(chunks)} chunks in {t_k:.2f} s; "
+        expect = {k: v * len(chunks) for k, v in per_chunk.items()}
+        print(f"{tag} {dname}: {len(run_frames)} views, {len(chunks)} chunks in {t_k:.2f} s; "
               f"launches {counts} (expected {expect}); psnr vs gt "
               f"{[round(r[1], 2) for r in rows]}", flush=True)
         if counts != expect:
-            fail(f"launch counts {counts} != {expect}")
+            fail(f"{tag} launch counts {counts} != {expect}")
         for i, (f, out) in enumerate(zip(run_frames, outs)):
             for key in OUTPUT_KEYS:
                 n = f["rays"]["rays_o"].shape[0]
                 if out[key].shape[0] != n or not torch.isfinite(out[key]).all():
-                    fail(f"{dname} view {i} {key}: shape {tuple(out[key].shape)} or not finite")
+                    fail(f"{tag} {dname} view {i} {key}: shape {tuple(out[key].shape)} or not finite")
         if dname == "bfloat16":
             info["launches"] = counts
 
@@ -507,18 +738,18 @@ def render_phase(dev):
                                      ("through the sampler", outs_full, RENDER_LIKE_MAX_ABS)):
             errs = {k: max(max_err(a[k], b[k])[0] for a, b in zip(outs_k, outs_p))
                     for k in OUTPUT_KEYS}
-            print(f"render {dname}: kernels vs plain versions, {what}: max abs "
+            print(f"{tag} {dname}: kernels vs plain versions, {what}: max abs "
                   f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
                   f"(limits {json.dumps(limits[dname])})", flush=True)
             for k, limit in limits[dname].items():
                 if errs[k] > limit:
-                    fail(f"{dname} {k}: kernels vs plain versions, {what}, max abs "
+                    fail(f"{tag} {dname} {k}: kernels vs plain versions, {what}, max abs "
                          f"{errs[k]:.3e} > {limit}")
 
         z_err = max(max_err(a["z_vals"], b["z_vals"])[0] for a, b in zip(outs_k, outs_full))
         moved = sum(int(((a["z_vals"] - b["z_vals"]).abs() > 1e-4).any(-1).sum())
                     for a, b in zip(outs_k, outs_full))
-        print(f"render {dname}: the sampler with the plain versions moved z_vals by up to "
+        print(f"{tag} {dname}: the sampler with the plain versions moved z_vals by up to "
               f"{z_err:.3e}; rays with a sample moved > 1e-4: {moved} of {len(chunks) * CHUNK}",
               flush=True)
 
@@ -528,7 +759,7 @@ def render_phase(dev):
         use_plain_versions(True)
         ms_p = cuda_ms(lambda: render_rays(model, cfg, rays), reps=5)
         use_plain_versions(False)
-        print(f"render {dname}: kernels {ms_k:.3f} ms/chunk ({CHUNK / ms_k * 1e3:.1f} rays/s), "
+        print(f"{tag} {dname}: kernels {ms_k:.3f} ms/chunk ({CHUNK / ms_k * 1e3:.1f} rays/s), "
               f"plain versions {ms_p:.3f} ms/chunk ({CHUNK / ms_p * 1e3:.1f} rays/s)", flush=True)
         info[dname] = {"ms_per_chunk": ms_k, "plain_ms_per_chunk": ms_p,
                        "rays_per_s": CHUNK / ms_k * 1e3}
@@ -549,11 +780,12 @@ def _loss_and_grads(model, cfg, batch, z_vals, eik):
     return loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
-def train_phase(dev):
-    """Phase 5: cli/train.py's step at full width in bf16 (warm-up, timed
-    steps, launches per step, loss trajectory), the plain versions' step
-    time, and the like-for-like step check in bf16 and float32."""
-    from monosdf_torch.cli.eval import bench_mlp_config
+def train_phase(dev, grids: bool = False):
+    """Phase 5 (phase 7 with ``grids``): cli/train.py's step of the bench's
+    MLP (or grid) model at full width in bf16 (warm-up, timed steps,
+    launches per step, loss trajectory), the plain versions' step time, and
+    the like-for-like step check in bf16 and float32."""
+    from monosdf_torch.cli.eval import bench_config
     from monosdf_torch.cli.train import make_trainer, ray_batches
     from monosdf_torch.data.synthetic import make_synthetic_sphere_scene
     from monosdf_torch.kernels import build
@@ -562,7 +794,9 @@ def train_phase(dev):
     scene = make_synthetic_sphere_scene(n_images=4, img_res=64)
     batches = ray_batches(scene, np.random.default_rng(SEED), WARMUP_STEPS + TIMED_STEPS + 1,
                           CHUNK, dev)
-    cfg = bench_mlp_config("bfloat16")
+    per_step = PER_STEP_GRIDS if grids else PER_STEP
+    what = "train grids" if grids else "train"
+    cfg = bench_config(grids, "bfloat16")
     model = init_monosdf(cfg, seed=SEED, device=dev)
     step = make_trainer(model, cfg)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -578,23 +812,23 @@ def train_phase(dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(build.launches)
-    expect = {k: v * TIMED_STEPS for k, v in PER_STEP.items()}
+    expect = {k: v * TIMED_STEPS for k, v in per_step.items()}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     ms_step = dt / TIMED_STEPS * 1e3
     losses = [float(m["loss"]) for m in metrics]
-    print(f"train bf16: {TIMED_STEPS} steps after {WARMUP_STEPS} warm-up in {dt:.3f} s, "
+    print(f"{what} bf16: {TIMED_STEPS} steps after {WARMUP_STEPS} warm-up in {dt:.3f} s, "
           f"{ms_step:.3f} ms/step ({CHUNK / ms_step * 1e3:.1f} rays/s); launches {counts} "
           f"(expected {expect}); peak memory {peak_gb:.2f} GiB", flush=True)
-    print(f"train bf16: loss {[round(v, 5) for v in losses]}", flush=True)
-    print(f"train bf16: psnr {[round(float(m['psnr']), 3) for m in metrics]}; beta "
+    print(f"{what} bf16: loss {[round(v, 5) for v in losses]}", flush=True)
+    print(f"{what} bf16: psnr {[round(float(m['psnr']), 3) for m in metrics]}; beta "
           f"{float(metrics[-1]['beta']):.6f}", flush=True)
     if counts != expect:
-        fail(f"training launch counts {counts} != {expect}")
+        fail(f"{what} launch counts {counts} != {expect}")
     if not all(math.isfinite(v) for v in losses):
-        fail("a training loss is not finite")
+        fail(f"{what}: a training loss is not finite")
     for n, p in model.named_parameters():
         if p.grad is None or not torch.isfinite(p.grad).all() or not torch.isfinite(p).all():
-            fail(f"{n}: gradient or parameter not finite after the timed steps")
+            fail(f"{what} {n}: gradient or parameter not finite after the timed steps")
 
     # the plain versions' step, for scale (not the main path)
     use_plain_versions(True)
@@ -608,16 +842,16 @@ def train_phase(dev):
     if any(build.launches.values()):
         fail(f"the plain-version steps launched kernels: {build.launches}")
     info = {"ms_per_step": ms_step, "rays_per_s": CHUNK / ms_step * 1e3, "steps": TIMED_STEPS,
-            "warmup": WARMUP_STEPS, "launches": counts, "launches_per_step": PER_STEP,
+            "warmup": WARMUP_STEPS, "launches": counts, "launches_per_step": per_step,
             "loss": losses, "peak_mem_gib": peak_gb, "plain_ms_per_step": plain_ms_step}
-    print(f"train bf16: plain versions {plain_ms_step:.3f} ms/step", flush=True)
+    print(f"{what} bf16: plain versions {plain_ms_step:.3f} ms/step", flush=True)
 
     # like for like: one batch, the kernel sampler's samples and eikonal
     # points fixed, the loss and every gradient with the kernels and with
     # each kernel's plain version in its place
     batch = batches[-1]
     for dname in ("bfloat16", "float32"):
-        cfg_d = bench_mlp_config(dname)
+        cfg_d = bench_config(grids, dname)
         model_d = perturbed_model(cfg_d, dev)
         z_vals, eik = sample_rays(model_d, cfg_d, batch["rays"], True,
                                   generator=torch.Generator(device=dev).manual_seed(SEED + 3))
@@ -629,13 +863,13 @@ def train_phase(dev):
         lp, gp = _loss_and_grads(model_d, cfg_d, batch, z_vals, eik)
         use_plain_versions(False)
         if any(build.launches.values()):
-            fail(f"the plain-version step launched kernels: {build.launches}")
+            fail(f"{what}: the plain-version step launched kernels: {build.launches}")
         atol, rtol, ltol = STEP_TOL[dname]
         worst, worst_name = 0.0, ""
         for n in gk:
             a, b = gk[n].float(), gp[n].float()
             if not torch.isfinite(a).all():
-                fail(f"step check {dname}: gradient {n} not finite")
+                fail(f"{what} step check {dname}: gradient {n} not finite")
             if dname == "float32":
                 r = float(((a - b).abs() / (atol + rtol * b.abs())).max())
             else:
@@ -643,17 +877,22 @@ def train_phase(dev):
             if r > worst:
                 worst, worst_name = r, n
         l_ratio = abs(lk - lp) / (ltol * abs(lp) + 1e-30)
-        print(f"step check {dname}: loss kernels {lk:.7f} plain {lp:.7f} (diff / tolerance "
+        print(f"{what} step check {dname}: loss kernels {lk:.7f} plain {lp:.7f} (diff / tolerance "
               f"{l_ratio:.3e}); worst gradient err / tolerance {worst:.3e} ({worst_name}); "
               f"launches {counts_k}", flush=True)
-        expect_k = {k: (0 if k in ("sdf_mlp", "sampler_machinery") else 1) for k in PER_STEP}
+        # the samples are fixed: the sampler's kernels (and the sweeps' K6) do not run
+        expect_k = {**per_step, "sdf_mlp": 0, "sampler_machinery": 0}
+        if grids:
+            expect_k["hash_encode"] -= per_step["sdf_mlp"]
         if counts_k != expect_k:
-            fail(f"step check launches {counts_k} != {expect_k}")
+            fail(f"{what} step check launches {counts_k} != {expect_k}")
         if worst > 1.0 or l_ratio > 1.0:
-            fail(f"step check {dname}: kernels vs plain versions beyond the stated tolerance")
+            fail(f"{what} step check {dname}: kernels vs plain versions beyond the stated "
+                 "tolerance")
         info[f"step_check_{dname}"] = {"loss_kernels": lk, "loss_plain": lp,
                                        "worst_grad_ratio": worst, "worst_param": worst_name}
         del model_d, gk, gp
+        torch.cuda.empty_cache()
     return info, (model, cfg, step, batches[0], gen)
 
 
@@ -695,22 +934,23 @@ def _profile(fn, reps: int, what: str) -> dict:
             "other_top_ms": dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])}
 
 
-def profile_phase(runs, info, train_run, train_info):
-    """Phase 6: device time per kernel over PROFILE_CHUNKS renders of the
-    timed chunk and over one training step (torch.profiler), and the
+def profile_phase(runs, info, train_run, train_info, what: str = ""):
+    """Phase 6 (and 7): device time per kernel over PROFILE_CHUNKS renders
+    of the timed chunk and over one training step (torch.profiler), and the
     device's busy share."""
     from monosdf_torch.models.monosdf import render_rays
 
     for dname, (model, cfg, rays) in runs.items():
-        prof = _profile(lambda: render_rays(model, cfg, rays), PROFILE_CHUNKS, f"render {dname}")
+        prof = _profile(lambda: render_rays(model, cfg, rays), PROFILE_CHUNKS,
+                        f"render{what} {dname}")
         prof["ms_per_chunk"] = prof.pop("ms")
         info[dname].update(profile=prof)
-        print(f"profile {dname}: {json.dumps(prof)}", flush=True)
+        print(f"profile{what} {dname}: {json.dumps(prof)}", flush=True)
     model, cfg, step, batch, gen = train_run
-    prof = _profile(lambda: step(model, batch, generator=gen), 1, "train step")
+    prof = _profile(lambda: step(model, batch, generator=gen), 1, f"train{what} step")
     prof["ms_per_step"] = prof.pop("ms")
     train_info["profile"] = prof
-    print(f"profile train bf16: {json.dumps(prof)}", flush=True)
+    print(f"profile{what} train bf16: {json.dumps(prof)}", flush=True)
 
 
 def main(argv):
@@ -733,7 +973,7 @@ def main(argv):
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.nvcc_path()})", flush=True)
     for name, log in build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "error" in line:
                 print(f"ptxas {name}: {line.strip()}")
 
     cfg = bench_mlp_config("bfloat16")
@@ -741,35 +981,48 @@ def main(argv):
     results = kernel_checks(model, cfg, dev)
     training_kernel_checks(model, cfg, dev, results)
     del model
+    torch.cuda.empty_cache()
+    grid_kernel_checks(dev, results)
     if "--kernels" in argv:
         print(json.dumps(results))
         return
     info, runs = render_phase(dev)
     train_info, train_run = train_phase(dev)
     profile_phase(runs, info, train_run, train_info)
+    del runs, train_run
+    torch.cuda.empty_cache()
+    ginfo, gruns = render_phase(dev, grids=True)
+    gtrain_info, gtrain_run = train_phase(dev, grids=True)
+    profile_phase(gruns, ginfo, gtrain_run, gtrain_info, " grids")
 
     kernels = []
     for name in build.SOURCES:
         r = results[name]
-        n_render, n_train = info["launches"][name], train_info["launches"][name]
+        # the main paths' runs, each counted from 0: the bf16 renders (16
+        # chunks each) and the timed training steps of both models
+        runs_n = {"launches_render": info["launches"][name],
+                  "launches_train": train_info["launches"][name],
+                  "launches_render_grids": ginfo["launches"][name],
+                  "launches_train_grids": gtrain_info["launches"][name]}
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"monosdf_torch/csrc/{name}.cu",
             "replaces": TPU_KERNELS[name],
-            # the main paths' runs: the bf16 render (16 chunks) and the
-            # timed training steps, each counted from 0
-            "launches": n_render + n_train,
-            "launches_render": n_render,
-            "launches_train": n_train,
+            "launches": sum(runs_n.values()),
+            **runs_n,
             "launches_per_chunk": PER_CHUNK[name],
             "launches_per_step": PER_STEP[name],
-            **{k: v for k, v in r.items() if k not in ("launches",)},
-            "kernel_ms": r["ms"],
+            "launches_per_chunk_grids": PER_CHUNK_GRIDS[name],
+            "launches_per_step_grids": PER_STEP_GRIDS[name],
             "library_ms": None,
+            **r,
+            "kernel_ms": r["ms"],
         })
     print(json.dumps({"render": info}))
     print(json.dumps({"train": train_info}))
+    print(json.dumps({"render_grids": ginfo}))
+    print(json.dumps({"train_grids": gtrain_info}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

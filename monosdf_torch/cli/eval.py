@@ -4,12 +4,15 @@
 Each frame is rendered in chunks of ``split_n_pixels`` rays through
 ``models.render_rays`` (eval); per-frame PSNR is printed and written to
 ``<out_dir>/psnr.csv``. The model is the bench's ScanNet-MLP configuration
-(``bench_mlp_config``); its parameters come from ``--params`` (an ``.npz``
+(``bench_mlp_config``), or with ``--grids`` the hash-grid model of
+``bench.py --grids`` (``bench_grids_config``); its parameters come from
+``--params`` (an ``.npz``
 written by ``params.save_params_npz``, e.g. from a JAX checkpoint) or from
 the port's own initialisation (``--init_seed``). The scene is the synthetic
 sphere. Runs on the card unless ``--device cpu``.
 
     python -m monosdf_torch.cli.eval --n_images 4 --img_res 64 --out_dir evaluation
+    python -m monosdf_torch.cli.eval --grids --out_dir evaluation_grids
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from ..eval.metrics import psnr
 from ..models.fields import ImplicitNetConfig, RenderingNetConfig
 from ..models.monosdf import MonoSDFConfig, init_monosdf, render_rays
 from ..ops.chunking import chunked_apply
+from ..ops.hashgrid import HashGridConfig
 from ..ops.sampler import SamplerConfig
 from ..params import load_jax_params, load_params_npz
 
@@ -58,6 +62,48 @@ def bench_mlp_config(compute_dtype: str = "bfloat16") -> MonoSDFConfig:
         diff_backend="pallas",
         rgb_backend="fused",
     )
+
+
+def bench_grids_config(compute_dtype: str = "bfloat16") -> MonoSDFConfig:
+    """The hash-grid ScanNet model of ``bench.py --grids``: a 16-level x 2
+    channel hash grid (base resolution 16 to 2048, 2^19-row hashed levels,
+    the 'add' hash) feeding a 2x256 SDF trunk on [PE(6) | 32 grid features]
+    (x / 1.1 into the grid, no sphere clamp), the 2x256 radiance MLP, the
+    sampler at 4 iterations with sweeps over the first 6 grid levels. The
+    table is read at ``compute_dtype`` (bf16: the bench's ``table_dtype``);
+    the JAX package's TPU table-layout knobs are kept as the bench sets them
+    and change no value. Backends: K1 and K4 in the sampler, K6/K5 and K7
+    for SDF, features and gradient; the radiance MLP is the plain path
+    (``rgb_backend='jnp'``, as the bench)."""
+    mixed = compute_dtype != "float32"
+    return MonoSDFConfig(
+        implicit=ImplicitNetConfig(
+            feature_vector_size=256, dims=(256, 256), multires=6, inside_outside=True, bias=0.9,
+            use_grid=True, divide_factor=1.1, sdf_bounding_sphere=0.0,
+            grid=HashGridConfig(
+                num_levels=16, level_dim=2, base_resolution=16, log2_hashmap_size=19,
+                desired_resolution=2048, table_dtype=compute_dtype, scatter_impl="fold",
+                hash_scheme="add", layout="quad", fold_impl="pallas", build_impl="pallas",
+                param_flat=True, gather_chunks=4, sweep_oct_levels=6,
+            ),
+        ),
+        rendering=RenderingNetConfig(feature_vector_size=256, dims=(256, 256), multires_view=4),
+        sampler=SamplerConfig(
+            scene_bounding_sphere=1.1, N_samples=64, N_samples_eval=128, N_samples_extra=32,
+            max_total_iters=4, intersection="cube", machinery="pallas",
+            machinery_dtype=compute_dtype,
+        ),
+        compute_dtype=compute_dtype,
+        mixed_precision=mixed,
+        sweep_max_level=6,
+        sampler_backend="pallas",
+        diff_backend="pallas",
+        rgb_backend="jnp",
+    )
+
+
+def bench_config(grids: bool, compute_dtype: str = "bfloat16") -> MonoSDFConfig:
+    return (bench_grids_config if grids else bench_mlp_config)(compute_dtype)
 
 
 def scene_frames(scene: dict, device) -> list:
@@ -96,6 +142,7 @@ def evaluate(model, cfg: MonoSDFConfig, frames: list, split_n_pixels: int = 1024
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--grids", action="store_true", help="the hash-grid model of bench.py --grids")
     ap.add_argument("--params", default=None, help=".npz of a JAX parameter tree")
     ap.add_argument("--init_seed", type=int, default=0)
     ap.add_argument("--n_images", type=int, default=4)
@@ -106,7 +153,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = bench_mlp_config()
+    cfg = bench_config(args.grids)
     model = init_monosdf(cfg, seed=args.init_seed, device=device)
     if args.params:
         load_jax_params(model, load_params_npz(args.params))

@@ -1,9 +1,12 @@
 """Train the bench's ScanNet-MLP model on the synthetic sphere scene: the
 work ``bench.py`` times (``monosdf_tpu/train/step.py make_train_step`` on
-1024-ray batches: render, MonoSDF loss, backward, Adam).
+1024-ray batches: render, MonoSDF loss, backward, Adam). ``--grids`` trains
+the hash-grid model of ``bench.py --grids`` instead, with the grid-mode Adam
+(three parameter groups, the table's at 20x the learning rate).
 
-The model is ``cli/eval.py bench_mlp_config`` (bf16 operands with float32
-sums, or ``--compute_dtype float32``), from the port's initialisation
+The model is ``cli/eval.py bench_mlp_config`` or ``bench_grids_config``
+(bf16 operands with float32 sums, or ``--compute_dtype float32``), from the
+port's initialisation
 (``--init_seed``) or an ``.npz`` of a JAX parameter tree (``--params``),
 trained with ``LossConfig()`` and ``OptimConfig()`` (Adam, lr 5e-4, decay
 over 150,000 steps), as ``bench.py``. Each step draws a fresh ray batch
@@ -15,6 +18,7 @@ card unless ``--device cpu``. No checkpoints, config files or validation
 renders: the trainer's other features come with a later slice.
 
     python -m monosdf_torch.cli.train --steps 20 --out trained.npz
+    python -m monosdf_torch.cli.train --grids --steps 20 --out trained_grids.npz
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from ..losses import LossConfig
 from ..models.monosdf import init_monosdf
 from ..params import load_jax_params, load_params_npz, params_to_tree, save_params_npz
 from ..train import OptimConfig, make_optimizer, make_train_step
-from .eval import bench_mlp_config
+from .eval import bench_config
 
 
 def ray_batches(scene: dict, rng: np.random.Generator, n: int, num_rays: int, device) -> list:
@@ -45,12 +49,15 @@ def ray_batches(scene: dict, rng: np.random.Generator, n: int, num_rays: int, de
 
 def make_trainer(model, cfg):
     """The bench's training step of ``model``: ``LossConfig()`` and Adam
-    (``OptimConfig()``) over its parameters."""
-    return make_train_step(cfg, LossConfig(), make_optimizer(OptimConfig(), model.parameters()))
+    (``OptimConfig()``, in grid mode with its parameter groups) over its
+    parameters."""
+    ocfg = OptimConfig(grid_mode=cfg.implicit.use_grid)
+    return make_train_step(cfg, LossConfig(), make_optimizer(ocfg, model.named_parameters()))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--grids", action="store_true", help="the hash-grid model of bench.py --grids")
     ap.add_argument("--params", default=None, help=".npz of a JAX parameter tree")
     ap.add_argument("--init_seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=20)
@@ -63,7 +70,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = bench_mlp_config(args.compute_dtype)
+    cfg = bench_config(args.grids, args.compute_dtype)
     model = init_monosdf(cfg, seed=args.init_seed, device=device)
     if args.params:
         load_jax_params(model, load_params_npz(args.params))

@@ -1,6 +1,7 @@
-// Shared pieces of the MLP kernels (sdf_mlp.cu, sdf_grad.cu, radiance_norm.cu
-// and the backward kernels sdf_grad_bwd.cu, radiance_norm_bwd.cu) and the
-// C-interface helpers of every kernel library.
+// Shared pieces of the MLP kernels (sdf_mlp.cu, sdf_grad.cu, sdf_grad_grid.cu,
+// radiance_norm.cu and the backward kernels sdf_grad_bwd.cu,
+// sdf_grad_grid_bwd.cu, radiance_norm_bwd.cu) and the C-interface helpers of
+// every kernel library.
 //
 // The MLP kernels keep one tile of activations (TILE_M rows) in shared
 // memory and stream each layer's weights through shared memory KT rows at a
@@ -25,7 +26,7 @@ constexpr int TILE_M = 64;   // activation rows per block
 constexpr int TILE_N = 256;  // output columns per pass (one per thread)
 constexpr int KT = 16;       // weight rows per shared-memory stage
 constexpr int LDA = 304;     // activation row stride: widths up to 304
-constexpr int LD0 = 48;      // input-embedding row stride: d0 up to 48
+constexpr int LD0 = 80;      // layer-0 input row stride: d0 up to 80 (the grid trunk's 71)
 constexpr float SQRT2 = 1.41421356237309515f;
 
 // Layer table of a packed MLP: W_l is kin x nout row-major at P + woff[l],
@@ -231,6 +232,71 @@ __device__ __forceinline__ void load_pe_tile(const float* __restrict__ x, int N,
     X0[p * LD0 + c] = e;
 #pragma unroll
     for (int k = 0; k < 3; ++k) X0[((k + 1) * PTS + p) * LD0 + c] = t[k];
+  }
+}
+
+// X0 <- the tile's PTS points' layer-0 input given in a0 (4, N, d0) float32:
+// a0[0] the input rows, a0[1 + k] their tangents along axis k, as row
+// k*PTS + p (zero past N and past d0).
+__device__ __forceinline__ void load_a0_tile(const float* __restrict__ a0, int N, int d0, int p0,
+                                             float* X0) {
+  for (int idx = threadIdx.x; idx < TILE_M * LD0; idx += THREADS) {
+    const int r = idx / LD0, c = idx - r * LD0;
+    const int k = r / PTS, p = r - k * PTS;
+    X0[idx] = (c < d0 && p0 + p < N) ? a0[((size_t)k * N + p0 + p) * d0 + c] : 0.0f;
+  }
+}
+
+// The layer-l matmul input into dst, rounded to the operand type: the
+// layer-0 input X0 for l == 0; else [h | s*u_k] from the stored Z of layer
+// l-1, concatenated with X0 and divided by sqrt 2 at a skip layer.
+template <bool BF16>
+__device__ void build_a_in(float* dst, int l, const MlpDesc& d, const ZPtrs& z,
+                           const float* X0, int d0, int N, int p0) {
+  if (l == 0) {
+    prep_first<BF16>(dst, X0, d0, TILE_M);
+    return;
+  }
+  const int w = d.nout[l - 1];
+  const bool skip = d.skip[l] != 0;
+  const void* Z = z.p[l - 1];
+  for (int idx = threadIdx.x; idx < PTS * w; idx += THREADS) {
+    const int p = idx / w, c = idx - p * w;
+    float zv = 0.0f, u[3] = {0.0f, 0.0f, 0.0f};
+    if (p0 + p < N) {
+      zv = load_act<BF16>(Z, (size_t)(p0 + p) * w + c);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) u[k] = load_act<BF16>(Z, ((size_t)(k + 1) * N + p0 + p) * w + c);
+    }
+    float h, s;
+    gate100(zv, h, s);
+    const float v[4] = {h, s * u[0], s * u[1], s * u[2]};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dst[(k * PTS + p) * LDA + c] = rnd<BF16>(skip ? v[k] / SQRT2 : v[k]);
+  }
+  if (skip) {
+    for (int idx = threadIdx.x; idx < TILE_M * d0; idx += THREADS) {
+      const int r = idx / d0, c = idx - r * d0;
+      dst[r * LDA + w + c] = rnd<BF16>(X0[r * LD0 + c] / SQRT2);
+    }
+  }
+}
+
+// out[:, :nprev] = CT[:, :K] W^T (WT: W^T packed row-major, K x ldw), divided
+// by sqrt 2 when skip: the cotangent of the previous layer's output.
+template <bool BF16>
+__device__ void propagate(const float* CT, int K, const float* WT, int ldw, int nprev, bool skip,
+                          float* Ws, float* out) {
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  float acc[8][8];
+  gemm_tile<BF16>(CT, LDA, K, WT, ldw, 0, nprev, Ws, acc);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = tile_col(tx, j);
+    if (c < nprev) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) out[(ty * 8 + i) * LDA + c] = skip ? acc[i][j] / SQRT2 : acc[i][j];
+    }
   }
 }
 

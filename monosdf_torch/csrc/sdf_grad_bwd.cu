@@ -37,59 +37,6 @@
 
 using namespace mk;
 
-// The layer-l matmul input into dst, rounded to the operand type: the
-// embedding for l == 0; else [h | s*u_k] from the stored Z of layer l-1,
-// concatenated with the embedding and divided by sqrt 2 at a skip layer.
-template <bool BF16>
-__device__ void build_a_in(float* dst, int l, const MlpDesc& d, const ZPtrs& z,
-                           const float* X0, int d0, int N, int p0) {
-  if (l == 0) {
-    prep_first<BF16>(dst, X0, d0, TILE_M);
-    return;
-  }
-  const int w = d.nout[l - 1];
-  const bool skip = d.skip[l] != 0;
-  const void* Z = z.p[l - 1];
-  for (int idx = threadIdx.x; idx < PTS * w; idx += THREADS) {
-    const int p = idx / w, c = idx - p * w;
-    float zv = 0.0f, u[3] = {0.0f, 0.0f, 0.0f};
-    if (p0 + p < N) {
-      zv = load_act<BF16>(Z, (size_t)(p0 + p) * w + c);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) u[k] = load_act<BF16>(Z, ((size_t)(k + 1) * N + p0 + p) * w + c);
-    }
-    float h, s;
-    gate100(zv, h, s);
-    const float v[4] = {h, s * u[0], s * u[1], s * u[2]};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) dst[(k * PTS + p) * LDA + c] = rnd<BF16>(skip ? v[k] / SQRT2 : v[k]);
-  }
-  if (skip) {
-    for (int idx = threadIdx.x; idx < TILE_M * d0; idx += THREADS) {
-      const int r = idx / d0, c = idx - r * d0;
-      dst[r * LDA + w + c] = rnd<BF16>(X0[r * LD0 + c] / SQRT2);
-    }
-  }
-}
-
-// out[:, :nprev] = CT[:, :K] W^T (WT: W^T packed row-major, K x ldw), divided
-// by sqrt 2 when skip: the cotangent of the previous layer's output.
-template <bool BF16>
-__device__ void propagate(const float* CT, int K, const float* WT, int ldw, int nprev, bool skip,
-                          float* Ws, float* out) {
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  float acc[8][8];
-  gemm_tile<BF16>(CT, LDA, K, WT, ldw, 0, nprev, Ws, acc);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = tile_col(tx, j);
-    if (c < nprev) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) out[(ty * 8 + i) * LDA + c] = skip ? acc[i][j] / SQRT2 : acc[i][j];
-    }
-  }
-}
-
 template <bool BF16>
 __global__ void __launch_bounds__(THREADS)
 sdf_grad_bwd_kernel(const float* __restrict__ x, int N, int multires, MlpDesc d,

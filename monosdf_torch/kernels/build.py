@@ -27,7 +27,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("sdf_mlp", "sampler_machinery", "sdf_grad", "radiance_norm", "sdf_grad_bwd",
-           "radiance_norm_bwd")
+           "radiance_norm_bwd", "hash_encode", "hash_encode_bwd", "sdf_grad_grid",
+           "sdf_grad_grid_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -55,7 +56,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

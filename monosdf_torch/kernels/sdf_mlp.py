@@ -12,8 +12,9 @@ layer's weights through shared memory, so device memory sees only the input
 and the output; this first version computes with float32 FMAs on the CUDA
 cores on bf16-rounded operands, not on the tensor cores.
 
-Input: the (N, d0) positional embedding (``sweep_pe_in_kernel=False``, the
-bench default), sent at the operand dtype. Output: (N, d_last) float32,
+Input: the (N, d0) layer-0 input, sent at the operand dtype: the positional
+embedding (``sweep_pe_in_kernel=False``, the bench default), or in grid
+mode [PE | the first levels' grid features, zero-padded], 71 wide. Output: (N, d_last) float32,
 rounded to bf16 when ``dtype`` is bf16, as the TPU kernel emits it.
 """
 
@@ -60,8 +61,8 @@ def _lib():
 
 def check_mlp_dims(ws, skip_in, d0: int, last_max: int):
     """Raise unless the layer widths fit the kernels' shared-memory tiles."""
-    if d0 > 48:
-        raise ValueError(f"input width {d0} > 48")
+    if d0 > 80:  # csrc/common.cuh LD0
+        raise ValueError(f"input width {d0} > 80")
     width = d0
     for l, w in enumerate(ws):
         expect = width + (d0 if l in skip_in else 0)

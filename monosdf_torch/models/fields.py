@@ -1,10 +1,13 @@
-"""SDF and radiance field networks, MLP mode (monosdf_tpu/models/fields.py).
+"""SDF and radiance field networks (monosdf_tpu/models/fields.py).
 
-The networks are ``nn.Module``s whose layers ``lin0, lin1, ...`` carry the
-JAX pytree's names; the functions below take the module as ``params``, as
-the JAX functions take the pytree. ``*_pallas*`` functions run a kernel
-(``kernels/``) on a CUDA tensor and its plain version on a CPU tensor; the
-others are the plain path (the JAX package's ``jnp`` backends).
+One ImplicitNetConfig covers the pure-MLP and the hash-grid variant
+(``use_grid``: the trunk's input is [PE(x) | grid features of x /
+divide_factor], no bounding-sphere clamp). The networks are ``nn.Module``s
+whose layers ``lin0, lin1, ...`` (and the grid's ``encoding.embeddings``)
+carry the JAX pytree's names; the functions below take the module as
+``params``, as the JAX functions take the pytree. ``*_pallas*`` functions
+run a kernel (``kernels/``) on a CUDA tensor and its plain version on a CPU
+tensor; the others are the plain path (the JAX package's ``jnp`` backends).
 """
 
 from __future__ import annotations
@@ -16,11 +19,14 @@ import torch
 from torch import nn
 
 from ..kernels.build import pack_mlp
+from ..kernels.hash_encode import encode_diff, hash_encode_fwd
 from ..kernels.radiance_norm import radiance_norm
-from ..kernels.sdf_grad import sdf_mlp_with_grad
+from ..kernels.sdf_grad import pe_with_tangents, sdf_mlp_with_grad
+from ..kernels.sdf_grad_grid import sdf_mlp_with_grad_in
 from ..kernels.sdf_mlp import sdf_mlp
 from ..nn import Linear, apply_linear, geometric_linear_init, init_linear, softplus_beta
 from ..ops.embedder import pe_dim, positional_encoding
+from ..ops.hashgrid import HashGridConfig, hash_encode, init_hashgrid, read_table
 
 
 # ---------------------------------------------------------------------------
@@ -41,15 +47,20 @@ class ImplicitNetConfig:
     multires: int = 6
     sphere_scale: float = 1.0
     inside_outside: bool = True
+    # hash-grid variant (reference ImplicitNetworkGrid)
     use_grid: bool = False
+    use_grid_feature: bool = True  # False: zeros in the grid features' place
+    divide_factor: float = 1.5
+    grid: HashGridConfig = HashGridConfig()
 
-    def __post_init__(self):
-        if self.use_grid:
-            raise NotImplementedError("the hash-grid model comes with the grid slice")
+    @property
+    def grid_feature_dim(self) -> int:
+        return self.grid.output_dim if self.use_grid else 0
 
     @property
     def input_dim(self) -> int:
-        return pe_dim(self.multires, self.d_in)
+        """Width of the trunk's input: PE(x) [+ grid features]."""
+        return pe_dim(self.multires, self.d_in) + self.grid_feature_dim
 
     @property
     def layer_dims(self) -> tuple:
@@ -61,7 +72,8 @@ class ImplicitNetConfig:
 
 
 class ImplicitNet(nn.Module):
-    """The SDF MLP: layers ``lin0 .. lin{num_layers-2}`` (weight-normalised)."""
+    """The SDF MLP: layers ``lin0 .. lin{num_layers-2}`` (weight-normalised),
+    and in grid mode the hash grid ``encoding``."""
 
     def __init__(self, cfg: ImplicitNetConfig, device=None):
         super().__init__()
@@ -71,7 +83,7 @@ class ImplicitNet(nn.Module):
             self.add_module(f"lin{l}", Linear(dims[l], out_dim, cfg.weight_norm, device))
 
     def layers(self):
-        return [getattr(self, f"lin{l}") for l in range(len(self._modules))]
+        return [m for name, m in self._modules.items() if name.startswith("lin")]
 
 
 def init_implicit_net(cfg: ImplicitNetConfig, generator: torch.Generator, device=None):
@@ -82,6 +94,8 @@ def init_implicit_net(cfg: ImplicitNetConfig, generator: torch.Generator, device
                                   cfg.multires, tuple(cfg.skip_in), cfg.bias, cfg.inside_outside)
         else:
             init_linear(lin, generator)
+    if cfg.use_grid:
+        net.encoding = init_hashgrid(cfg.grid, generator, device)
     return net
 
 
@@ -92,10 +106,12 @@ def effective_linear_weights(params: nn.Module):
 
 
 def implicit_apply(params: ImplicitNet, cfg: ImplicitNetConfig, x: torch.Tensor,
-                   dtype=None) -> torch.Tensor:
+                   dtype=None, max_level: int | None = None) -> torch.Tensor:
     """x (..., 3) -> raw net output (..., 1 + feature_vector_size).
-    ``dtype`` (bf16): operands rounded, sums float32, hidden outputs bf16."""
-    inp = positional_encoding(x, cfg.multires)
+    ``dtype`` (bf16): operands rounded, sums float32, hidden outputs bf16.
+    ``max_level`` (grid mode): only the first grid levels, the rest zero
+    (the sampler's sweeps)."""
+    inp = _net_input(params, cfg, x, max_level)
     h = inp
     for l, lin in enumerate(params.layers()):
         if l in cfg.skip_in:
@@ -108,8 +124,9 @@ def implicit_apply(params: ImplicitNet, cfg: ImplicitNetConfig, x: torch.Tensor,
 
 
 def _clamp_sdf(cfg: ImplicitNetConfig, sdf: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Bounding-sphere SDF clamp so that every ray eventually occludes."""
-    if cfg.sdf_bounding_sphere <= 0.0:
+    """Bounding-sphere SDF clamp so that every ray eventually occludes. The
+    grid variant does not clamp (reference ImplicitNetworkGrid)."""
+    if cfg.use_grid or cfg.sdf_bounding_sphere <= 0.0:
         return sdf
     sphere_sdf = cfg.sphere_scale * (
         cfg.sdf_bounding_sphere - torch.linalg.vector_norm(x, dim=-1, keepdim=True)
@@ -117,10 +134,25 @@ def _clamp_sdf(cfg: ImplicitNetConfig, sdf: torch.Tensor, x: torch.Tensor) -> to
     return torch.minimum(sdf, sphere_sdf)
 
 
+def _net_input(params: ImplicitNet, cfg: ImplicitNetConfig, x: torch.Tensor,
+               max_level: int | None = None) -> torch.Tensor:
+    """The trunk's layer-0 input, plain path: PE(x), and in grid mode the
+    grid features of x / divide_factor after it (only the first
+    ``max_level`` levels, the rest zero)."""
+    pe = positional_encoding(x, cfg.multires)
+    if not cfg.use_grid:
+        return pe
+    if cfg.use_grid_feature:
+        feature = hash_encode(params.encoding, cfg.grid, x / cfg.divide_factor, n_levels=max_level)
+    else:
+        feature = torch.zeros(*x.shape[:-1], cfg.grid_feature_dim, dtype=x.dtype, device=x.device)
+    return torch.cat([pe, feature], dim=-1)
+
+
 def sdf_value(params: ImplicitNet, cfg: ImplicitNetConfig, x: torch.Tensor,
-              dtype=None) -> torch.Tensor:
+              dtype=None, max_level: int | None = None) -> torch.Tensor:
     """x (..., 3) -> sdf (..., 1)."""
-    out = implicit_apply(params, cfg, x, dtype=dtype)
+    out = implicit_apply(params, cfg, x, dtype=dtype, max_level=max_level)
     return _clamp_sdf(cfg, out[..., :1], x)
 
 
@@ -143,6 +175,66 @@ def sdf_value_pallas(params: ImplicitNet, cfg: ImplicitNetConfig, x: torch.Tenso
     out = sdf_mlp(ws, bs, inp.reshape(-1, inp.shape[-1]), tuple(cfg.skip_in), dtype=dtype,
                   packed=packed)
     return _clamp_sdf(cfg, out.reshape(*x.shape[:-1], 1), x)
+
+
+def grid_table(params: ImplicitNet, cfg: ImplicitNetConfig):
+    """The hash table the kernel path's encodes read (``ops.hashgrid.
+    read_table``): one bf16 copy per render or step when the table is read
+    at bf16. None outside grid mode."""
+    return read_table(params.encoding, cfg.grid) if cfg.use_grid else None
+
+
+def _grid_features(params, cfg: ImplicitNetConfig, x: torch.Tensor, table, n_levels=None,
+                   tangents: bool = False):
+    """Kernel path: the grid features of x (N, 3) through K6 (K6/K5 under
+    grad with tangents), and with ``tangents`` their derivatives in x."""
+    g = cfg.grid
+    if not cfg.use_grid_feature:
+        z = torch.zeros(x.shape[0], g.output_dim, dtype=x.dtype, device=x.device)
+        return (z, torch.zeros(3, *z.shape, dtype=x.dtype, device=x.device)) if tangents else z
+    xs = x / cfg.divide_factor
+    if tangents:
+        return encode_diff(params.encoding.embeddings, table, g, xs, 1.0, 1.0 / cfg.divide_factor)
+    return hash_encode_fwd(table, g, xs.contiguous(), 1.0, n_levels)
+
+
+def sdf_value_pallas_grid(params: ImplicitNet, cfg: ImplicitNetConfig, x: torch.Tensor,
+                          dtype=None, max_level: int | None = None, weights=None,
+                          table=None) -> torch.Tensor:
+    """Grid-mode sweeps: [PE | the first ``max_level`` levels' features
+    (K6), zero-padded] through K1, last layer cut to the SDF column, no
+    clamp. ``weights``: ``sweep_weights(params, cfg)``; ``table``:
+    ``grid_table(params, cfg)``; each resolved here if None."""
+    ws, bs, packed = weights if weights is not None else sweep_weights(params, cfg)
+    table = grid_table(params, cfg) if table is None else table
+    xf = x.reshape(-1, 3)
+    inp = torch.cat([positional_encoding(xf, cfg.multires),
+                     _grid_features(params, cfg, xf, table, max_level)], dim=-1)
+    out = sdf_mlp(ws, bs, inp, tuple(cfg.skip_in), dtype=dtype, packed=packed)
+    return out.reshape(*x.shape[:-1], 1)
+
+
+def sdf_feat_grad_pallas_grid(params: ImplicitNet, cfg: ImplicitNetConfig, x: torch.Tensor,
+                              dtype=None, table=None):
+    """Grid-mode sdf_feat_grad through K6 and K7: the layer-0 input [PE(x)
+    | features] and its three spatial tangents (PE's in closed form, the
+    features' from K6) go to K7f as one (4, N, d0) operand. Under grad it is
+    differentiable: K7b gives the parameter gradients and the input
+    cotangents, which reach the table through K5, the eikonal's
+    second-order path included."""
+    if any(s < cfg.num_layers - 1 for s in cfg.skip_in):
+        raise NotImplementedError("the grid trunk kernels take no skip connections")
+    prefix = x.shape[:-1]
+    xf = x.reshape(-1, 3).detach()
+    N = xf.shape[0]
+    table = grid_table(params, cfg) if table is None else table
+    emb, tang = pe_with_tangents(xf, cfg.multires)
+    feat, tg = _grid_features(params, cfg, xf, table, tangents=True)
+    a0 = torch.cat([torch.cat([emb, feat], dim=-1)[None],
+                    torch.cat([tang.reshape(3, N, -1), tg], dim=-1)], dim=0)
+    ws, bs = effective_linear_weights(params)
+    sdf, f, g = sdf_mlp_with_grad_in(ws, bs, a0, dtype)
+    return sdf.reshape(*prefix, 1), f.reshape(*prefix, -1), g.reshape(*prefix, 3)
 
 
 def _spatial_grad(y: torch.Tensor, x: torch.Tensor, keep_graph: bool) -> torch.Tensor:

@@ -9,6 +9,13 @@ plus the eikonal points' gradients in training mode.
 Backends keep the JAX package's field names. ``'pallas'`` (and
 ``rgb_backend='fused'``) runs the kernel on a CUDA tensor and its plain
 version on a CPU tensor; ``'jnp'`` runs the plain PyTorch path.
+
+Grid mode (``implicit.use_grid``): the sweeps read the first
+``sweep_max_level`` grid levels only; every encode of one render or
+training step reads one copy of the table at its ``table_dtype``
+(``fields.grid_table``, the JAX package's ``with_table_cache``); in training
+the eikonal points join the main points in one differentiated evaluation
+(no clamp in grid mode, so nothing tells them apart), on both backends.
 """
 
 from __future__ import annotations
@@ -27,15 +34,18 @@ from ..ops.sampler import SamplerConfig, error_bound_z_vals
 from .fields import (
     ImplicitNetConfig,
     RenderingNetConfig,
+    grid_table,
     init_implicit_net,
     init_rendering_net,
     rendering_apply,
     rendering_apply_pallas_wide,
     sdf_feat_grad,
     sdf_feat_grad_pallas,
+    sdf_feat_grad_pallas_grid,
     sdf_gradient,
     sdf_value,
     sdf_value_pallas,
+    sdf_value_pallas_grid,
     sweep_weights,
 )
 
@@ -53,12 +63,18 @@ class MonoSDFConfig:
     # forward's matmul operands); parameters stay float32
     compute_dtype: str = "float32"
     mixed_precision: bool = False
-    # 'jnp' or 'pallas' (K1, on the (N, 39) embedding): the sampler's no-grad SDF sweeps
+    # grid mode: the sampler's sweeps read the first K grid levels only
+    # (None: all of them)
+    sweep_max_level: int | None = None
+    # 'jnp' or 'pallas' (K1 on the (N, 39) embedding, or in grid mode on
+    # [PE | K6 features]): the sampler's no-grad SDF sweeps
     sampler_backend: str = "jnp"
-    # 'jnp' or 'pallas' (K2): SDF, features and spatial gradient
+    # 'jnp' or 'pallas' (K2; in grid mode K6/K5 and K7): SDF, features and
+    # spatial gradient
     diff_backend: str = "jnp"
-    # 'jnp' or 'fused' (K3, needs diff_backend='pallas'); 'pallas' (the
-    # split-operand radiance kernel) is not ported yet
+    # 'jnp' or 'fused' (K3, needs diff_backend='pallas' and MLP mode; grid
+    # mode renders with 'jnp'); 'pallas' (the split-operand radiance kernel)
+    # is not ported yet
     rgb_backend: str = "jnp"
 
     def __post_init__(self):
@@ -76,7 +92,8 @@ class Density(nn.Module):
 
 
 class MonoSDF(nn.Module):
-    """Parameters ``implicit.lin*``, ``rendering.lin*``, ``density.beta``,
+    """Parameters ``implicit.lin*`` (and in grid mode
+    ``implicit.encoding.embeddings``), ``rendering.lin*``, ``density.beta``,
     named as the JAX pytree of ``init_monosdf``."""
 
     def __init__(self, implicit: nn.Module, rendering: nn.Module, density: Density):
@@ -137,22 +154,31 @@ def eikonal_points(rays_o, rays_d, z_eik, bound: float, draws=None, generator=No
 
 @torch.no_grad()
 def sample_rays(params: MonoSDF, cfg: MonoSDFConfig, rays: dict, training: bool = False,
-                draws=None, generator=None):
+                draws=None, generator=None, table=None):
     """The sampler half of ``render_rays``: z_vals (R, S) in eval; in
     training (z_vals, eikonal points (4R, 3)), drawn with ``draws`` and
-    ``generator`` as ``render_rays`` says."""
+    ``generator`` as ``render_rays`` says. ``table``: grid mode's read
+    table (``fields.grid_table``), made here if None."""
     imp_cfg = cfg.implicit
     beta0 = get_beta(params.density.beta, cfg.beta_min)
     sampler_dtype = _dtype(cfg.compute_dtype)
     if cfg.sampler_backend == "pallas":
         # weight norm resolved and the weights packed once for all the sweeps
         weights = sweep_weights(params.implicit, imp_cfg)
+        if imp_cfg.use_grid:
+            table = grid_table(params.implicit, imp_cfg) if table is None else table
 
-        def sampler_sdf(pts):
-            return sdf_value_pallas(params.implicit, imp_cfg, pts, sampler_dtype, weights)[..., 0]
+            def sampler_sdf(pts):
+                return sdf_value_pallas_grid(params.implicit, imp_cfg, pts, sampler_dtype,
+                                             cfg.sweep_max_level, weights, table)[..., 0]
+        else:
+            def sampler_sdf(pts):
+                return sdf_value_pallas(params.implicit, imp_cfg, pts, sampler_dtype,
+                                        weights)[..., 0]
     else:
         def sampler_sdf(pts):
-            return sdf_value(params.implicit, imp_cfg, pts, dtype=sampler_dtype)[..., 0]
+            return sdf_value(params.implicit, imp_cfg, pts, dtype=sampler_dtype,
+                             max_level=cfg.sweep_max_level)[..., 0]
 
     sampled = error_bound_z_vals(sampler_sdf, rays["rays_o"], rays["rays_d"], beta0,
                                  cfg.sampler, training, draws, generator)
@@ -181,14 +207,16 @@ def render_rays(params: MonoSDF, cfg: MonoSDFConfig, rays: dict, training: bool 
     from ``generator``), keeps the graph to the parameters (call it under
     grad), and adds ``grad_theta`` and ``grad_theta_nei`` (2R, 3 each): the
     unclamped SDF gradient at the eikonal points and at their neighbours."""
+    table = grid_table(params.implicit, cfg.implicit)  # one per call, shared by every encode
     if not training:
-        return render_samples(params, cfg, rays, sample_rays(params, cfg, rays), image_code)
-    z_vals, eik = sample_rays(params, cfg, rays, True, draws, generator)
-    return render_samples(params, cfg, rays, z_vals, image_code, eik_points=eik)
+        return render_samples(params, cfg, rays, sample_rays(params, cfg, rays, table=table),
+                              image_code, table=table)
+    z_vals, eik = sample_rays(params, cfg, rays, True, draws, generator, table)
+    return render_samples(params, cfg, rays, z_vals, image_code, eik_points=eik, table=table)
 
 
 def render_samples(params: MonoSDF, cfg: MonoSDFConfig, rays: dict, z_vals: torch.Tensor,
-                   image_code=None, eik_points=None) -> dict:
+                   image_code=None, eik_points=None, table=None) -> dict:
     """The render after the sampler: SDF, features and gradient at the
     points at ``z_vals`` (R, S) along each ray, radiance and volume
     rendering. Given the z_vals of another render, it renders at exactly
@@ -199,14 +227,16 @@ def render_samples(params: MonoSDF, cfg: MonoSDFConfig, rays: dict, z_vals: torc
     ``grad_theta``/``grad_theta_nei``; on the K2 path the eikonal points go
     through the same K2 call as the main points, unclamped (``clamp_rows``:
     the JAX package's ``fold_eikonal=True``, its default and the bench's),
-    so one K2f and one K2b launch serve both."""
+    so one K2f and one K2b launch serve both. In grid mode they join the
+    main points on both backends. ``table``: grid mode's read table
+    (``fields.grid_table``), made here if None."""
     if eik_points is None:
         with torch.no_grad():
-            return _render_samples(params, cfg, rays, z_vals, image_code, None)
-    return _render_samples(params, cfg, rays, z_vals, image_code, eik_points)
+            return _render_samples(params, cfg, rays, z_vals, image_code, None, table)
+    return _render_samples(params, cfg, rays, z_vals, image_code, eik_points, table)
 
 
-def _render_samples(params, cfg, rays, z_vals, image_code, eik_points) -> dict:
+def _render_samples(params, cfg, rays, z_vals, image_code, eik_points, table) -> dict:
     rays_o, rays_d = rays["rays_o"], rays["rays_d"]
     R, S = z_vals.shape
     imp_cfg = cfg.implicit
@@ -215,8 +245,22 @@ def _render_samples(params, cfg, rays, z_vals, image_code, eik_points) -> dict:
     training = eik_points is not None
 
     main_dtype = _dtype(cfg.compute_dtype) if cfg.mixed_precision else None
-    use_pallas_diff = cfg.diff_backend == "pallas"
-    if use_pallas_diff:
+    use_pallas_diff = cfg.diff_backend == "pallas" and not imp_cfg.use_grid
+    if imp_cfg.use_grid:
+        pts_in = torch.cat([points_flat, eik_points], dim=0) if training else points_flat
+        if cfg.diff_backend == "pallas":
+            table = grid_table(params.implicit, imp_cfg) if table is None else table
+            sdf, feature_vectors, gradients = sdf_feat_grad_pallas_grid(
+                params.implicit, imp_cfg, pts_in, dtype=main_dtype, table=table)
+        else:
+            sdf, feature_vectors, gradients = sdf_feat_grad(params.implicit, imp_cfg, pts_in,
+                                                            dtype=main_dtype)
+        if training:
+            grad_theta = gradients[n_main:]
+            sdf = sdf[:n_main]
+            feature_vectors = feature_vectors[:n_main]
+            gradients = gradients[:n_main]
+    elif use_pallas_diff:
         pts_in = torch.cat([points_flat, eik_points], dim=0) if training else points_flat
         sdf, feature_vectors, gradients = sdf_feat_grad_pallas(
             params.implicit, imp_cfg, pts_in, dtype=main_dtype,

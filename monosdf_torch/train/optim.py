@@ -4,8 +4,11 @@
 MLP mode is plain Adam with torch's defaults, betas (0.9, 0.999) and eps
 1e-8 outside the square root, as optax.adam computes it: update = -lr *
 m_hat / (sqrt(v_hat) + eps), m_hat = m / (1 - b1^t), v_hat = v / (1 - b2^t).
-The learning rate at step t (from 0) is lr * decay_rate^(t / decay_steps).
-Grid mode (its three parameter groups) comes with the grid slice.
+Grid mode has three parameter groups, ``encoding`` (the hash table) at lr *
+20, ``net`` and ``density`` at lr, with betas (0.9, 0.99) and eps 1e-15:
+the updates of the JAX package's flat_adam with its per-leaf lr scale. The
+learning rate at step t (from 0) is lr * decay_rate^(t / decay_steps) in
+every group.
 """
 
 from __future__ import annotations
@@ -14,6 +17,9 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+
+# grid mode's learning-rate factor per group (reference lr_factor_for_grid)
+GRID_LR_FACTOR = {"encoding": 20.0, "net": 1.0, "density": 1.0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,11 +38,29 @@ class Optimizer(NamedTuple):
     schedule: torch.optim.lr_scheduler.LambdaLR
 
 
-def make_optimizer(cfg: OptimConfig, params) -> Optimizer:
-    """Adam over ``params`` with the exponential decay, stepped once per
-    training step."""
+def grid_group(name: str) -> str:
+    """The grid-mode group of a parameter name: 'encoding', 'density' or 'net'."""
+    parts = name.split(".")
+    if "encoding" in parts:
+        return "encoding"
+    return "density" if parts[0] == "density" else "net"
+
+
+def make_optimizer(cfg: OptimConfig, named_params) -> Optimizer:
+    """Adam over ``named_params``, (name, tensor) pairs as
+    ``named_parameters()`` gives them, with the exponential decay, stepped
+    once per training step."""
+    named_params = list(named_params)
+    lr = cfg.learning_rate
     if cfg.grid_mode:
-        raise NotImplementedError("grid mode's parameter groups come with the grid slice")
-    adam = torch.optim.Adam(params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        groups = {g: [] for g in GRID_LR_FACTOR}
+        for name, p in named_params:
+            groups[grid_group(name)].append(p)
+        adam = torch.optim.Adam([{"params": ps, "lr": lr * GRID_LR_FACTOR[g]}
+                                 for g, ps in groups.items() if ps],
+                                lr=lr, betas=(0.9, 0.99), eps=1e-15)
+    else:
+        adam = torch.optim.Adam([p for _, p in named_params], lr=lr, betas=(0.9, 0.999),
+                                eps=1e-8)
     gamma = cfg.sched_decay_rate ** (1.0 / cfg.decay_steps)
     return Optimizer(adam, torch.optim.lr_scheduler.LambdaLR(adam, lambda t: gamma**t))

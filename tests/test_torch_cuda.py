@@ -6,7 +6,8 @@ nor the JAX package, so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Small widths (4x48 SDF MLP with a skip at 2, multires 4; 2x48 radiance
-MLP) and a few hundred points; the full-width shapes are chip_smoke.py's.
+MLP; a 6-level hash grid and a 2x48 grid trunk on its 71-wide input) and a
+few hundred points; the full-width shapes are chip_smoke.py's.
 """
 
 import numpy as np
@@ -104,8 +105,7 @@ def test_k1_k2_k3_match_plain(dev, dtype):
                radiance_norm_plain(rws, rbs, g, sv, feat, dtype), dtype)
     torch.cuda.synchronize()
     assert {k: build.launches[k] - before[k] for k in before} == {
-        "sdf_mlp": 1, "sampler_machinery": 0, "sdf_grad": 1, "radiance_norm": 1,
-        "sdf_grad_bwd": 0, "radiance_norm_bwd": 0}
+        **dict.fromkeys(before, 0), "sdf_mlp": 1, "sdf_grad": 1, "radiance_norm": 1}
 
 
 # parameter gradients, sums over the rows: err <= atol + rtol * max|plain| per
@@ -184,8 +184,8 @@ def test_autograd_functions_launch_the_backward_kernels(dev):
     for p in [*imp.parameters(), *ren.parameters()]:
         assert p.grad is not None and torch.isfinite(p.grad).all()
     assert {k: build.launches[k] - before[k] for k in before} == {
-        "sdf_mlp": 0, "sampler_machinery": 0, "sdf_grad": 1, "radiance_norm": 1,
-        "sdf_grad_bwd": 1, "radiance_norm_bwd": 1}
+        **dict.fromkeys(before, 0), "sdf_grad": 1, "radiance_norm": 1, "sdf_grad_bwd": 1,
+        "radiance_norm_bwd": 1}
 
 
 @pytest.mark.cuda
@@ -237,3 +237,119 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         with pytest.raises(ValueError):  # N not a multiple of 32
             sampler_iter_machinery(s, s, s, s[:, :1].contiguous(), torch.tensor(0.01, device=dev),
                                    0.1, 1e-6, False)
+
+
+# -- the grid model's kernels: K6, K5, K7 ------------------------------------
+
+def _grid_cfg(table_dtype):
+    from monosdf_torch.ops.hashgrid import HashGridConfig
+
+    return HashGridConfig(num_levels=6, level_dim=2, base_resolution=16, log2_hashmap_size=12,
+                          desired_resolution=128, hash_scheme="add", table_dtype=table_dtype,
+                          param_flat=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_k6_k5_match_plain(dev, dtype):
+    """K6 (features and tangents, all and the first 3 levels) and K5 against
+    their plain versions on 700 points, some outside the box. K6 reads the
+    same corner values as its plain version and sums in float32, so a bf16
+    table holds at the float32 TOL. K5 row by row, |a - b| <= atol + rtol *
+    S with S the row's sum, over its corner terms, of the magnitudes each is
+    made from (|c_feat| W + sum_k |c_tg_k| |dW_k|): a term's float32
+    rounding where its parts cancel, the atomics' order, and at bf16 a
+    term's rounding landing on the neighbouring value (2^-7 of the term)."""
+    from monosdf_torch.kernels.hash_encode import (
+        hash_encode_bwd,
+        hash_encode_bwd_plain,
+        hash_encode_fwd,
+        hash_encode_fwd_plain,
+    )
+    from monosdf_torch.ops.hashgrid import corner_geometry, corner_weights
+
+    cfg = _grid_cfg("bfloat16" if dtype is not None else "float32")
+    gen = torch.Generator().manual_seed(0)
+    table = (torch.rand(cfg.table_size * 2, generator=gen) * 2 - 1).to(dev)
+    table = table.to(dtype) if dtype is not None else table
+    x = _rand(dev, 700, 3, lo=-1.1, hi=1.1, seed=3)
+    before = dict(build.launches)
+    for n_levels in (None, 3):
+        _check([hash_encode_fwd(table, cfg, x, 1.0, n_levels)],
+               [hash_encode_fwd_plain(table, cfg, x, 1.0, n_levels)], None)
+    _check(hash_encode_fwd(table, cfg, x, 1.0, None, True, 0.5),
+           hash_encode_fwd_plain(table, cfg, x, 1.0, None, True, 0.5), None)
+    cf, ct = _rand(dev, 700, 12, seed=4), _rand(dev, 3, 700, 12, seed=5)
+    d = hash_encode_bwd(cfg, x, cf, ct, 1.0, 0.5)
+    dp = hash_encode_bwd_plain(cfg, x, cf, ct, 1.0, 0.5)
+    idx, w, dw, inb = corner_geometry(cfg, x, 1.0, 6, 0.5)
+    W, dW = corner_weights(w, dw)
+    mag = (W[..., None] * (cf.abs() * inb[:, None]).reshape(700, 6, 2).permute(1, 0, 2)[None]
+           + torch.einsum("jcln,jlnd->clnd", dW.abs(),
+                          (ct.abs() * inb[:, None]).reshape(3, 700, 6, 2).permute(0, 2, 1, 3)))
+    s = torch.zeros(cfg.table_size, 2, device=dev).index_add_(
+        0, idx.reshape(-1), mag.reshape(-1, 2)).reshape(-1)
+    rtol = 1e-4 if dtype is None else 2**-7 + 1e-4
+    assert torch.isfinite(d).all()
+    assert ((d - dp).abs() <= 1e-6 + rtol * s).all(), float((d - dp).abs().max())
+    torch.cuda.synchronize()
+    assert build.launches["hash_encode"] - before["hash_encode"] == 3
+    assert build.launches["hash_encode_bwd"] - before["hash_encode_bwd"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_k7_forward_and_backward_match_plain(dev, dtype):
+    from monosdf_torch.kernels.sdf_grad_grid import (
+        _forward,
+        sdf_mlp_with_grad_in_bwd,
+        sdf_mlp_with_grad_in_bwd_plain,
+        sdf_mlp_with_grad_in_plain,
+    )
+
+    rng = np.random.default_rng(6)
+    sizes = (71, 48, 48, 33)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    ws = [t(rng.normal(size=(a, b)) / np.sqrt(a)) for a, b in zip(sizes[:-1], sizes[1:])]
+    bs = [t(0.1 * rng.normal(size=b)) for b in sizes[1:]]
+    a0 = t(rng.normal(size=(4, 700, 71)))
+    sdf, feat, grad, zs = _forward(ws, bs, a0, dtype, True)
+    ref = sdf_mlp_with_grad_in_plain(ws, bs, a0, dtype, True)
+    _check([sdf, feat, grad, *zs], [*ref[:3], *ref[3]], dtype)
+    cots = [t(rng.normal(size=(700, k))) for k in (1, 32, 3)]
+    dws, dbs, da0 = sdf_mlp_with_grad_in_bwd(ws, bs, a0, zs, *cots, dtype)
+    pws, pbs, pda0 = sdf_mlp_with_grad_in_bwd_plain(ws, bs, a0, zs, *cots, dtype)
+    _check_grads([*dws, *dbs, da0], [*pws, *pbs, pda0], dtype)
+    again = sdf_mlp_with_grad_in_bwd(ws, bs, a0, zs, *cots, dtype)
+    assert all(torch.equal(a, b) for a, b in zip([*dws, *dbs, da0], [*again[0], *again[1],
+                                                                     again[2]]))
+
+
+@pytest.mark.cuda
+def test_grid_autograd_functions_launch_their_kernels(dev):
+    """The grid diff path under grad: K6 and K7f forward, K7b and K5 backward."""
+    from monosdf_torch.models.fields import (
+        ImplicitNetConfig as Imp,
+        grid_table,
+        init_implicit_net as init_imp,
+        sdf_feat_grad_pallas_grid,
+    )
+
+    cfg = Imp(feature_vector_size=32, dims=(48, 48), multires=6, use_grid=True,
+              divide_factor=1.1, sdf_bounding_sphere=0.0, grid=_grid_cfg("bfloat16"))
+    net = init_imp(cfg, torch.Generator().manual_seed(0), dev)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.05 * torch.randn(p.shape, device=dev))
+    before = dict(build.launches)
+    x = _rand(dev, 300, 3)
+    sdf, feat, grad = sdf_feat_grad_pallas_grid(net, cfg, x, torch.bfloat16,
+                                                table=grid_table(net, cfg))
+    (sdf.sum() + feat.float().sum() + (grad**2).sum()).backward()
+    torch.cuda.synchronize()
+    for p in net.parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all()
+    assert net.encoding.embeddings.grad.abs().max() > 0
+    assert {k: build.launches[k] - before[k] for k in
+            ("hash_encode", "hash_encode_bwd", "sdf_grad_grid", "sdf_grad_grid_bwd")} == {
+        "hash_encode": 1, "hash_encode_bwd": 1, "sdf_grad_grid": 1, "sdf_grad_grid_bwd": 1}

@@ -16,6 +16,8 @@ REPO = Path(__file__).resolve().parent.parent
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, chip_smoke, monosdf_torch, monosdf_torch.cli.eval, monosdf_torch.cli.train\n"
+        "import monosdf_torch.ops.hashgrid, monosdf_torch.kernels.hash_encode\n"
+        "import monosdf_torch.kernels.sdf_grad_grid\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'monosdf_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -33,8 +35,14 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
         init_monosdf(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         teval.main(["--n_images", "1", "--img_res", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        teval.main(["--grids", "--n_images", "1", "--img_res", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_monosdf(teval.bench_grids_config())
     from monosdf_torch.cli import train as ttrain
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.main(["--steps", "1", "--rays", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrain.main(["--grids", "--steps", "1", "--rays", "2"])
     assert next(init_monosdf(cfg, device="cpu").parameters()).device.type == "cpu"

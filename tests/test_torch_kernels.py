@@ -7,6 +7,8 @@ tests/test_torch_cuda.py.
 float32 tolerance 2e-5 per component; each bf16 case states its own.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -38,10 +40,17 @@ from monosdf_torch.kernels.sdf_grad import (
     sdf_mlp_with_grad_bwd_plain,
     sdf_mlp_with_grad_plain,
 )
+from monosdf_torch.kernels.sdf_grad_grid import (
+    sdf_mlp_with_grad_in,
+    sdf_mlp_with_grad_in_bwd_plain,
+    sdf_mlp_with_grad_in_plain,
+)
 from monosdf_torch.kernels.sdf_mlp import sdf_mlp, sdf_mlp_plain
 from monosdf_torch.ops.embedder import positional_encoding
 from monosdf_torch.params import flatten_tree
 from torch_parity import both_models, configs
+
+torch.set_num_threads(2)  # leave the cores to the other test workers
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 JDT = {"float32": None, "bfloat16": jnp.bfloat16}
@@ -112,6 +121,26 @@ def test_k1_plain_matches_jnp_path(models):
     out_j = jax.jit(lambda p, y: jf.implicit_apply(p, jcfg.implicit, y))(
         jparams["implicit"], jnp.asarray(x))[:, :1]
     _close(sdf_mlp_plain(tws, tbs, emb, jcfg.implicit.skip_in), out_j)
+
+
+# The grid trunk's sweeps: K1 on [PE(6) | 32 grid features], 71 wide, a 2x32
+# trunk without skip; float32 at the 2e-5 bar.
+def test_k1_plain_matches_pallas_at_the_grid_width():
+    rng = np.random.default_rng(3)
+    sizes = (71, 32, 32, 1)
+    ws = [(rng.normal(size=(a, b)) / np.sqrt(a)).astype(np.float32)
+          for a, b in zip(sizes[:-1], sizes[1:])]
+    bs = [(0.1 * rng.normal(size=b)).astype(np.float32) for b in sizes[1:]]
+    emb = _f32(200, 71, seed=4)
+    out_j = jax.jit(lambda w, b, e: fused_sdf_mlp(w, b, e, (), block=128))(
+        [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs], jnp.asarray(emb))
+    tws, tbs = [torch.from_numpy(w) for w in ws], [torch.from_numpy(b) for b in bs]
+    _close(sdf_mlp(tws, tbs, torch.from_numpy(emb), ()), out_j)
+    from monosdf_torch.kernels.sdf_mlp import check_mlp_dims
+
+    check_mlp_dims(tws, (), 71, last_max=4)
+    with pytest.raises(ValueError):  # wider than the kernels' 80-column input tile
+        check_mlp_dims([torch.zeros(81, 32), *tws[1:]], (), 81, last_max=4)
 
 
 def test_k1_wrapper_takes_plain_on_cpu(models):
@@ -575,3 +604,67 @@ def test_k3_autograd_grads_match_jax_grad_and_double_backward():
     for k, a, b, c in pairs:
         np.testing.assert_allclose(_np(a), np.asarray(b), atol=2e-4, rtol=1e-3, err_msg=k)
         np.testing.assert_allclose(_np(a), _np(c), atol=2e-4, rtol=1e-3, err_msg=k)
+
+
+# -- K7: sdf_grad_grid (the hash-grid trunk) ---------------------------------------
+
+def _k7_inputs(n=130, d0=71, dims=(32, 32), F=16, seed=0):
+    rng = np.random.default_rng(seed)
+    sizes = [d0, *dims, F + 1]
+    ws = [(rng.normal(size=(a, b)) / np.sqrt(a)).astype(np.float32)
+          for a, b in zip(sizes[:-1], sizes[1:])]
+    bs = [(0.1 * rng.normal(size=b)).astype(np.float32) for b in sizes[1:]]
+    inp = rng.normal(size=(n, d0)).astype(np.float32)
+    tg = rng.normal(size=(3, n, d0)).astype(np.float32)
+    cots = [rng.normal(size=(n, k)).astype(np.float32) for k in (1, F, 3)]
+    return ws, bs, inp, tg, cots
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_k7(dtype_name):
+    from monosdf_tpu.ops.pallas_sdf_grad_grid import sdf_mlp_with_grad_in as jk7
+
+    def fn(ws, bs, inp, tg, cots):
+        out, vjp = jax.vjp(lambda *a: jk7(*a, dtype_name, 64), tuple(ws), tuple(bs), inp, tg)
+        return out, vjp(tuple(c.astype(o.dtype) for c, o in zip(cots, out)))
+
+    return jax.jit(fn)
+
+
+# float32: values at 2e-5, the parameter and input cotangents at 2e-4 / 1e-3
+# (sums over 130 points' 4 rows in another order). bf16: operands, Z and
+# cotangents rounded at the same points in both, float32 sums in another
+# order; a rounding that lands on the neighbouring bf16 value moves a value
+# by 2^-8 of its size, and two bf16 ulps (2^-7) of a tensor's largest entry
+# bound what that does downstream.
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k7_forward_and_vjp_match_pallas(dtype):
+    ws, bs, inp, tg, cots = _k7_inputs()
+    tdt = torch.bfloat16 if dtype == "bfloat16" else None
+    (js_, jf_, jg_), (jdw, jdb, jdinp, jdtg) = _jax_k7("" if tdt is None else dtype)(
+        [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs], jnp.asarray(inp),
+        jnp.asarray(tg), [jnp.asarray(c) for c in cots])
+    t = torch.from_numpy
+    a0 = torch.cat([t(inp)[None], t(tg)])
+    tws, tbs = [t(w) for w in ws], [t(b) for b in bs]
+    sdf, feat, grad, zs = sdf_mlp_with_grad_in_plain(tws, tbs, a0, tdt, save_z=True)
+    dws, dbs, da0 = sdf_mlp_with_grad_in_bwd_plain(tws, tbs, a0, zs, *map(t, cots), tdt)
+
+    def close(a, b, atol, rtol):
+        a, b = a.float().numpy(), np.asarray(b, np.float32)
+        if tdt is None:
+            np.testing.assert_allclose(a, b, atol=atol, rtol=rtol)
+        else:
+            np.testing.assert_allclose(a, b, rtol=0, atol=2**-7 * np.abs(b).max())
+
+    for a, b in ((sdf, js_), (feat, jf_), (grad, jg_)):
+        close(a, b, **TOL)
+    for a, b in (*zip(dws, jdw), *zip(dbs, jdb), (da0[0], jdinp), (da0[1:], jdtg)):
+        close(a, b, 2e-4, 1e-3)
+    # the autograd Function (K7f with saved Z, K7b) gives the same cotangents
+    a0g = a0.clone().requires_grad_(True)
+    wg = [w.clone().requires_grad_(True) for w in tws]
+    out = sdf_mlp_with_grad_in(wg, tbs, a0g, tdt)
+    torch.autograd.backward(out, [t(c).to(o.dtype) for c, o in zip(cots, out)])
+    assert torch.allclose(a0g.grad, da0, rtol=1e-6, atol=1e-6)
+    assert all(torch.allclose(w.grad, d, rtol=1e-6, atol=1e-6) for w, d in zip(wg, dws))

@@ -35,6 +35,8 @@ import monosdf_torch.models.monosdf as tm
 from monosdf_torch import params as tparams
 from torch_parity import both_models, configs, ray_batch
 
+torch.set_num_threads(2)  # leave the cores to the other test workers
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 

@@ -24,6 +24,8 @@ from monosdf_torch.cli import eval as teval
 from monosdf_torch.data.synthetic import make_synthetic_sphere_scene
 from torch_parity import both_models, configs, ray_batch
 
+torch.set_num_threads(2)  # leave the cores to the other test workers
+
 OUT_KEYS = ("rgb_values", "depth_values", "normal_map")
 SAMPLE_KEYS = ("z_vals", "weights", "sdf")
 ITERS = {"max_total_iters": 2}

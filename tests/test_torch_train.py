@@ -30,36 +30,12 @@ import monosdf_torch.ops.sampler as ts
 from monosdf_torch.cli import train as ttrain
 from monosdf_torch.params import flatten_tree, load_params_npz
 from monosdf_torch.train import OptimConfig, make_optimizer, make_train_step
-from torch_parity import both_models, configs, ray_batch
+from torch_parity import both_models, configs, jax_draws, ray_batch, torch_draws
+
+torch.set_num_threads(2)  # leave the cores to the other test workers
 
 ITERS = {"max_total_iters": 2}
 N_RAYS = 8
-
-
-def jax_draws(key, R: int, cfg) -> dict:
-    """The random draws of monosdf_tpu render_rays(training=True) under
-    ``key`` (monosdf.py:135, :219-226; sampler.py:373, :129, :337, :352,
-    :434), as numpy, under the names the port takes them."""
-    k_sampler, k_uni, k_nei = jax.random.split(key, 3)
-    k_init, k_final, k_extra, k_eik = jax.random.split(k_sampler, 4)
-    sc = cfg.sampler
-    n_buf = sc.N_samples_eval * sc.max_total_iters
-    bs = cfg.scene_bounding_sphere
-    d = {
-        "t_rand": jax.random.uniform(k_init, (R, sc.N_samples_eval), dtype=jnp.float32),
-        "u_final": jax.random.uniform(k_final, (R, sc.N_samples), dtype=jnp.float32),
-        "extra_idx": jax.random.permutation(k_extra, n_buf)[: sc.N_samples_extra],
-        "eik_idx": jax.random.randint(k_eik, (R, 1), 0, sc.N_samples + sc.N_samples_extra + 2),
-        "eik_uniform": jax.random.uniform(k_uni, (R, 3), minval=-bs, maxval=bs,
-                                          dtype=jnp.float32),
-        "eik_neigh": jax.random.uniform(k_nei, (2 * R, 3), dtype=jnp.float32),
-    }
-    return {k: np.array(v) for k, v in d.items()}
-
-
-def torch_draws(d: dict) -> dict:
-    return {k: torch.from_numpy(v.astype(np.int64) if v.dtype.kind == "i" else v)
-            for k, v in d.items()}
 
 
 def _batch(n=N_RAYS, seed=0):
@@ -205,7 +181,7 @@ def test_adam_and_lr_schedule_match_optax_over_three_steps():
     state = jopt.init(jp)
     jupdate = jax.jit(jopt.update)
     tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in p0.items()}
-    adam, sched = make_optimizer(OptimConfig(**ocfg), list(tp.values()))
+    adam, sched = make_optimizer(OptimConfig(**ocfg), tp.items())
     for g in grads:
         upd, state = jupdate(jax.tree_util.tree_map(jnp.asarray, g), state, jp)
         jp = jax.tree_util.tree_map(lambda a, u: a + u, jp, upd)
@@ -217,8 +193,11 @@ def test_adam_and_lr_schedule_match_optax_over_three_steps():
             np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]), rtol=1e-6,
                                        atol=1e-7, err_msg=k)
     assert sched.get_last_lr()[0] == pytest.approx(1e-2 * 0.25 ** 1.5, rel=1e-6)
-    with pytest.raises(NotImplementedError):
-        make_optimizer(OptimConfig(grid_mode=True), list(tp.values()))
+    # grid mode groups the parameters by name: no name here is the table's,
+    # so one group at lr (tests/test_torch_grid.py holds the three groups'
+    # updates against the JAX package's)
+    adam, _ = make_optimizer(OptimConfig(grid_mode=True, **ocfg), tp.items())
+    assert [g["lr"] for g in adam.param_groups] == [1e-2]
 
 
 # -- the training step ------------------------------------------------------
@@ -288,7 +267,7 @@ def test_training_step_matches_jax(kernels):
 
     model = _model(tcfg, tree)
     step = make_train_step(tcfg, tl.LossConfig(), make_optimizer(OptimConfig(),
-                                                                  model.parameters()))
+                                                                  model.named_parameters()))
     mt = step(model, tb, draws=draws)
     for k in ("loss", "rgb_loss", "eikonal_loss", "smooth_loss", "normal_l1", "normal_cos",
               "psnr", "depth_loss"):
@@ -309,7 +288,7 @@ def test_three_step_loss_trajectory_matches_jax():
     state, mj = _jax_steps(True, jparams, batches, keys)
     model = _model(tcfg, tree)
     step = make_train_step(tcfg, tl.LossConfig(), make_optimizer(OptimConfig(),
-                                                                  model.parameters()))
+                                                                  model.named_parameters()))
     lt = [float(step(model, _to_torch(b), draws=torch_draws(jax_draws(k, N_RAYS, jcfg)))["loss"])
           for b, k in zip(batches, keys)]
     np.testing.assert_allclose(lt, [m["loss"] for m in mj], rtol=1e-4)
@@ -330,5 +309,5 @@ def test_train_cli_writes_npz(tmp_path):
                         "--img_res", "4", "--compute_dtype", "float32", "--out", str(out)])
     assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
     tree = load_params_npz(out)
-    model = tm.init_monosdf(ttrain.bench_mlp_config("float32"), device="cpu")
+    model = tm.init_monosdf(ttrain.bench_config(False, "float32"), device="cpu")
     assert set(flatten_tree(tree)) == {n.replace(".", "/") for n, _ in model.named_parameters()}

@@ -8,20 +8,31 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 import jax
 import jax.numpy as jnp
 
 import monosdf_tpu.models.fields as jf
 import monosdf_tpu.models.monosdf as jm
+import monosdf_tpu.ops.hashgrid as jh
 import monosdf_tpu.ops.sampler as js
 import monosdf_torch.models.fields as tf
 import monosdf_torch.models.monosdf as tm
+import monosdf_torch.ops.hashgrid as th
 import monosdf_torch.ops.sampler as ts
 from monosdf_torch.params import load_jax_params, params_to_tree
 
 IMPLICIT = dict(feature_vector_size=32, dims=(48, 48, 48, 48), skip_in=(2,), multires=4,
                 inside_outside=True, bias=0.9, sdf_bounding_sphere=1.1)
 RENDERING = dict(feature_vector_size=32, dims=(48, 48), multires_view=4)
+# a tiny hash grid of the bench's kind: 4 levels (1 dense, 3 hashed 2^12-row
+# levels), the 'add' hash, the quad layout with the Pallas fold and build
+GRID = dict(num_levels=4, level_dim=2, base_resolution=16, log2_hashmap_size=12,
+            desired_resolution=64, hash_scheme="add", layout="quad", scatter_impl="fold",
+            fold_impl="pallas", build_impl="pallas", param_flat=True, sweep_oct_levels=2)
+GRID_IMPLICIT = dict(feature_vector_size=16, dims=(32, 32), multires=6, inside_outside=True,
+                     bias=0.9, use_grid=True, divide_factor=1.1, sdf_bounding_sphere=0.0)
+GRID_RENDERING = dict(feature_vector_size=16, dims=(32, 32), multires_view=4)
 
 
 def model_kwargs(kernels: bool, dtype: str = "float32", sampler=None, **overrides) -> dict:
@@ -44,7 +55,7 @@ def configs(kernels: bool, dtype: str = "float32", sampler=None, **overrides):
     ``sampler`` overrides SamplerConfig fields."""
     kw = model_kwargs(kernels, dtype, sampler, **overrides)
 
-    def build(fields, sampler, monosdf):
+    def build(fields, sampler, monosdf, hashgrid):
         return monosdf.MonoSDFConfig(
             implicit=fields.ImplicitNetConfig(**IMPLICIT),
             rendering=fields.RenderingNetConfig(**RENDERING),
@@ -52,7 +63,26 @@ def configs(kernels: bool, dtype: str = "float32", sampler=None, **overrides):
             **{k: v for k, v in kw.items() if k != "sampler"},
         )
 
-    return build(jf, js, jm), build(tf, ts, tm)
+    return build(jf, js, jm, jh), build(tf, ts, tm, th)
+
+
+def grid_configs(kernels: bool, dtype: str = "float32", sampler=None, grid=None):
+    """(JAX, port) MonoSDFConfig of a tiny hash-grid model (GRID,
+    GRID_IMPLICIT, GRID_RENDERING; ``grid`` overrides HashGridConfig
+    fields), the sweeps reading its first 2 levels, the radiance MLP on the
+    plain path (rgb_backend 'jnp', as bench.py --grids)."""
+    kw = model_kwargs(kernels, dtype, sampler, rgb_backend="jnp", sweep_max_level=2)
+    gkw = {**GRID, "table_dtype": dtype, **(grid or {})}
+
+    def build(fields, sampler, monosdf, hashgrid):
+        return monosdf.MonoSDFConfig(
+            implicit=fields.ImplicitNetConfig(**GRID_IMPLICIT, grid=hashgrid.HashGridConfig(**gkw)),
+            rendering=fields.RenderingNetConfig(**GRID_RENDERING),
+            sampler=sampler.SamplerConfig(**kw["sampler"]),
+            **{k: v for k, v in kw.items() if k != "sampler"},
+        )
+
+    return build(jf, js, jm, jh), build(tf, ts, tm, th)
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,3 +119,29 @@ def ray_batch(n: int, seed: int = 0) -> dict:
 
     scene = make_synthetic_sphere_scene(n_images=2, img_res=8)
     return sample_ray_batch(scene, np.random.default_rng(seed), n)["rays"]
+
+
+def jax_draws(key, R: int, cfg) -> dict:
+    """The random draws of monosdf_tpu render_rays(training=True) under
+    ``key`` (monosdf.py:135, :219-226; sampler.py:373, :129, :337, :352,
+    :434), as numpy, under the names the port takes them."""
+    k_sampler, k_uni, k_nei = jax.random.split(key, 3)
+    k_init, k_final, k_extra, k_eik = jax.random.split(k_sampler, 4)
+    sc = cfg.sampler
+    n_buf = sc.N_samples_eval * sc.max_total_iters
+    bs = cfg.scene_bounding_sphere
+    d = {
+        "t_rand": jax.random.uniform(k_init, (R, sc.N_samples_eval), dtype=jnp.float32),
+        "u_final": jax.random.uniform(k_final, (R, sc.N_samples), dtype=jnp.float32),
+        "extra_idx": jax.random.permutation(k_extra, n_buf)[: sc.N_samples_extra],
+        "eik_idx": jax.random.randint(k_eik, (R, 1), 0, sc.N_samples + sc.N_samples_extra + 2),
+        "eik_uniform": jax.random.uniform(k_uni, (R, 3), minval=-bs, maxval=bs,
+                                          dtype=jnp.float32),
+        "eik_neigh": jax.random.uniform(k_nei, (2 * R, 3), dtype=jnp.float32),
+    }
+    return {k: np.array(v) for k, v in d.items()}
+
+
+def torch_draws(d: dict) -> dict:
+    return {k: torch.from_numpy(v.astype(np.int64) if v.dtype.kind == "i" else v)
+            for k, v in d.items()}
