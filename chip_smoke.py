@@ -3,11 +3,14 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --kernels  # build and check the kernels only
 
-Two models: the bench's ScanNet-MLP model (bench.py) and its hash-grid
-model (bench.py --grids). Phases (any failure exits non-zero):
+Three models: the bench's ScanNet-MLP model (bench.py), its hash-grid
+model (bench.py --grids) and the appearance-code model of
+confs/synth_union_quality.conf (cli/eval.py union_codes_config: per-image
+codes, white background, sphere sampler), the last with its radiance
+through K3 and through K8a. Phases (any failure exits non-zero):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the ten kernels from monosdf_torch/csrc with nvcc for sm_90a, one
-   nvcc per source, all at once;
+2. build the fourteen kernels from monosdf_torch/csrc with nvcc for sm_90a,
+   one nvcc per source, all at once;
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, and time kernel and plain version (CUDA events):
    the forwards at the shapes of one 1024-ray render chunk of the bench's
@@ -15,7 +18,10 @@ model (bench.py --grids). Phases (any failure exits non-zero):
    K2b at the training step's 104,448 points, K3b at its 100,352 samples;
    for the grid model K6 at the sweeps' 131,072 points (6 levels) and at
    the step's 104,448 points (16 levels, with tangents), K5, K7f and K7b at
-   104,448 points, K1 at the grid trunk's 71-wide input;
+   104,448 points, K1 at the grid trunk's 71-wide input; the radiance
+   kernels at the step's 100,352 samples: K3f/K3b with the union model's
+   32-wide code, K8a forward and backward on its raw gradient, K8b forward
+   and backward on the nerf trunk's 283-wide input;
 4. render 4 synthetic 64x64 views through cli/eval.py at full width
    (geometric init plus seeded noise) with the kernels, counting launches
    (K1 = K4 = 5 and K2 = K3 = 1 per chunk); render every chunk again with
@@ -35,13 +41,29 @@ model (bench.py --grids). Phases (any failure exits non-zero):
    phase 4; 3 warm-up and 20 timed steps of cli/train.py --grids (K1 = K4
    = 4, K6 = 5, K7f = K7b = K5 = 1 per step) and the step check of phase 5,
    the table's gradient included; a profile of a grid chunk and step;
-8. print a ``render``, a ``train``, a ``render_grids`` and a
-   ``train_grids`` JSON line, the ``kernels`` JSON line, the card line
-   (nvidia-smi's name and power limit), and last the result line.
+8. the union model with per-image codes: 4 views through cli/eval.py
+   --union (each frame with its own code; launches per chunk as the MLP
+   model's) with the like-for-like checks of phase 4, 3 warm-up and 20
+   timed steps of cli/train.py --union on batches over several frames and
+   the step check of phase 5 (the embeddings' gradient included), and a
+   profile of one step; then the same with --rgb_backend pallas (K8a in
+   K3's place: K1 = K4 = 5, K2f = K8a = 1 per chunk, K2b = K8a's backward
+   = 1 more per step, K3 0): a render, the steps, the step check, a
+   profile;
+9. the nerf radiance check: fields.rendering_apply_pallas in nerf mode with
+   codes (K8b on [view PE | features | code], 315 wide) at 100,352 samples,
+   forward and backward through autograd, against rendering_apply, in
+   float32 and bf16 (K8b and its backward once each);
+10. print a ``render``, a ``train``, a ``render_grids``, a ``train_grids``,
+   a ``render_codes``, a ``train_codes``, a ``render_codes_split``, a
+   ``train_codes_split`` and a ``nerf_radiance`` JSON line, the ``kernels``
+   JSON line, the card line (nvidia-smi's name and power limit), and last
+   the result line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -69,6 +91,10 @@ TPU_KERNELS = {
     "hash_encode_bwd": "monosdf_tpu/ops/pallas_fold.py:196",
     "sdf_grad_grid": "monosdf_tpu/ops/pallas_sdf_grad_grid.py:165",
     "sdf_grad_grid_bwd": "monosdf_tpu/ops/pallas_sdf_grad_grid.py:351",
+    "radiance_split": "monosdf_tpu/ops/pallas_rgb_grad.py:379",
+    "radiance_split_bwd": "monosdf_tpu/ops/pallas_rgb_grad.py:538",
+    "radiance_mlp": "monosdf_tpu/ops/pallas_rgb_grad.py:122",
+    "radiance_mlp_bwd": "monosdf_tpu/ops/pallas_rgb_grad.py:225",
 }
 _NONE = dict.fromkeys(TPU_KERNELS, 0)
 PER_CHUNK = {**_NONE, "sdf_mlp": 5, "sampler_machinery": 5, "sdf_grad": 1, "radiance_norm": 1}
@@ -79,6 +105,17 @@ PER_STEP = {**PER_CHUNK, "sdf_grad_bwd": 1, "radiance_norm_bwd": 1}
 PER_CHUNK_GRIDS = {**_NONE, "sdf_mlp": 4, "sampler_machinery": 4, "hash_encode": 5,
                    "sdf_grad_grid": 1}
 PER_STEP_GRIDS = {**PER_CHUNK_GRIDS, "sdf_grad_grid_bwd": 1, "hash_encode_bwd": 1}
+# the union model: the MLP model's launches with K3 (codes through K3's
+# code operand); with rgb_backend 'pallas' K8a and its backward in K3's place
+PER_CHUNK_SPLIT = {**PER_CHUNK, "radiance_norm": 0, "radiance_split": 1}
+PER_STEP_SPLIT = {**PER_CHUNK_SPLIT, "sdf_grad_bwd": 1, "radiance_split_bwd": 1}
+# the main paths: JSON tag, launches per chunk and per step
+PATHS = {
+    "mlp": ("", PER_CHUNK, PER_STEP),
+    "grids": ("_grids", PER_CHUNK_GRIDS, PER_STEP_GRIDS),
+    "codes": ("_codes", PER_CHUNK, PER_STEP),
+    "codes_split": ("_codes_split", PER_CHUNK_SPLIT, PER_STEP_SPLIT),
+}
 WARMUP_STEPS, TIMED_STEPS = 3, 20
 # stated tolerances, kernel vs plain version on the card: err <= atol + rtol * max|plain|;
 # bf16: a rounding that lands on the neighbouring bf16 value (ulp 2^-7 at 1)
@@ -104,6 +141,16 @@ RENDER_FIXED_MAX_ABS = {
 RENDER_LIKE_MAX_ABS = {
     "float32": {"rgb_values": 1e-4, "depth_values": 2e-3, "normal_map": 1e-2},
     "bfloat16": {"rgb_values": 1e-3, "depth_values": 2e-3, "normal_map": 5e-2},
+}
+# - the union model through the sampler: its white background adds (1 -
+#   sum of the weights) to rgb, so weights that move with the samples move
+#   rgb as they move depth; in bf16 the sampler moved a sample on 11,712 of
+#   16,384 rays (by up to 2.1e-2), rgb by 1.7e-3 and depth by 2.3e-3, while
+#   at fixed samples they agreed to 1.6e-4 and 8.4e-4 (NVIDIA H100 80GB
+#   HBM3, 700 W; PERF.md). float32 as the MLP model's.
+RENDER_LIKE_MAX_ABS_CODES = {
+    "float32": RENDER_LIKE_MAX_ABS["float32"],
+    "bfloat16": {"rgb_values": 5e-3, "depth_values": 5e-3, "normal_map": 5e-2},
 }
 # K2b and K3b parameter gradients, kernel vs plain version: each is a sum
 # over ~4e5 (K2b) or ~1e5 (K3b) rows, so per tensor err <= atol + rtol *
@@ -194,12 +241,14 @@ def use_plain_versions(on: bool):
     (``on``) or back at the kernel wrappers: the sweeps' K1 and K6 and the
     sampler's K4, inside the K2, K3 and K7 modules the forward that both the
     no-grad call and the autograd Function run and the backward that the
-    Function's backward runs, and inside the K6/K5 module the encode and
+    Function's backward runs (K8a and K8b too), and inside the K6/K5 module the encode and
     table gradient that its autograd Function runs. A wrapper launches its
     kernel on a CUDA tensor, so this is how the card runs the kernel path's
     own composition with the plain versions."""
     from monosdf_torch.kernels import hash_encode as k6
+    from monosdf_torch.kernels import radiance_mlp as k8b
     from monosdf_torch.kernels import radiance_norm as k3
+    from monosdf_torch.kernels import radiance_split as k8a
     from monosdf_torch.kernels import sampler_machinery as k4
     from monosdf_torch.kernels import sdf_grad as k2
     from monosdf_torch.kernels import sdf_grad_grid as k7
@@ -220,6 +269,10 @@ def use_plain_versions(on: bool):
         (k6, "hash_encode_bwd", k6.hash_encode_bwd_plain),
         (k7, "_forward", k7.sdf_mlp_with_grad_in_plain),
         (k7, "sdf_mlp_with_grad_in_bwd", k7.sdf_mlp_with_grad_in_bwd_plain),
+        (k8a, "_forward", k8a.radiance_split_plain),
+        (k8a, "radiance_split_bwd", k8a.radiance_split_bwd_plain),
+        (k8b, "_forward", k8b.mlp_plain),
+        (k8b, "mlp_with_input_grad_bwd", k8b.mlp_bwd_plain),
     ):
         kernel = _KERNEL_FNS.setdefault((mod, name), getattr(mod, name))
         setattr(mod, name, plain if on else kernel)
@@ -408,7 +461,7 @@ def training_kernel_checks(model, cfg, dev, results):
 
         def k3b(d, plain=False):
             fn = k3.radiance_norm_bwd_plain if plain else k3.radiance_norm_bwd
-            dws, dbs, dg, df = fn(rws, rbs, g, sv, feat, co, cn, d)
+            dws, dbs, dg, df, _ = fn(rws, rbs, g, sv, feat, co, cn, d)
             return [*dws, *dbs, dg], df
 
         errs = {"sdf_grad_train": {}, "sdf_grad_bwd": {}, "radiance_norm_bwd": {}}
@@ -671,35 +724,179 @@ def grid_kernel_checks(dev, results):
         fail("a grid kernel disagrees with its plain version beyond the stated tolerance")
 
 
-def chunks_of(frames) -> list:
-    """The 1024-ray chunks of every frame, as cli/eval.py cuts them."""
+def radiance_kernel_checks(dev, results):
+    """Phase 3 for the radiance kernels at the step's 100,352 samples: K3f
+    and K3b with the union model's 32-wide code operand (321-wide input),
+    K8a forward and backward on its raw gradient, K8b forward and backward
+    on the nerf trunk's [view PE | features] (283 wide), each against its
+    plain version in float32 and bf16; times and bounds at bf16."""
+    from monosdf_torch.cli.eval import union_codes_config
+    from monosdf_torch.kernels import radiance_mlp as k8b
+    from monosdf_torch.kernels import radiance_norm as k3
+    from monosdf_torch.kernels import radiance_split as k8a
+    from monosdf_torch.models.fields import effective_linear_weights
+    from monosdf_torch.ops.embedder import positional_encoding
+
+    rng = np.random.default_rng(SEED + 5)
+    cfg = union_codes_config("bfloat16")
+    n = CHUNK * cfg.sampler.total_samples
+    F = cfg.rendering.feature_vector_size
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    model = perturbed_model(cfg, dev)
+    with torch.no_grad():
+        ws, bs = (list(x.detach() for x in xs) for xs in effective_linear_weights(model.rendering))
+        g = t(rng.normal(size=(n, 3)))
+        sv = torch.cat([t(rng.uniform(-1.1, 1.1, (n, 3))),
+                        positional_encoding(t(rng.normal(size=(n, 3))), 4)], -1)
+        feat = t(rng.normal(size=(n, F)))
+        # the codes of 4 frames, as a batch's rays carry them
+        code = model.rendering.embeddings.detach()[torch.from_numpy(rng.integers(0, 4, n)).to(dev)]
+        co, cn = t(rng.normal(size=(n, 3))), t(rng.normal(size=(n, 3)))
+        h0 = torch.cat([sv[:, 3:], feat], -1)  # nerf mode's input row without a code
+        nws = [t(rng.normal(size=(h0.shape[1], ws[0].shape[1])) / np.sqrt(h0.shape[1])), *ws[1:]]
+    del model
+
+    def k3f(d, plain):
+        return list((k3.radiance_norm_plain if plain else k3.radiance_norm)(ws, bs, g, sv, feat,
+                                                                            d, code)), []
+
+    def k3b(d, plain):
+        fn = k3.radiance_norm_bwd_plain if plain else k3.radiance_norm_bwd
+        dws, dbs, dg, df, dc = fn(ws, bs, g, sv, feat, co, cn, d, code)
+        return [*dws, *dbs, dg, dc], [df]
+
+    def k8af(d, plain):
+        fn = k8a.radiance_split_plain if plain else k8a.radiance_split
+        return [fn(ws, bs, g, sv, feat, code, d)], []
+
+    def k8ab(d, plain):
+        fn = k8a.radiance_split_bwd_plain if plain else k8a.radiance_split_bwd
+        dws, dbs, dn, df, dc = fn(ws, bs, g, sv, feat, code, co, d)
+        return [*dws, *dbs, dn, dc], [df]
+
+    def k8bf(d, plain):
+        return [(k8b.mlp_plain if plain else k8b.mlp_with_input_grad)(nws, bs, h0, d)], []
+
+    def k8bb(d, plain):
+        fn = k8b.mlp_bwd_plain if plain else k8b.mlp_with_input_grad_bwd
+        dws, dbs, dh0 = fn(nws, bs, h0, co, d)
+        return [*dws, *dbs, dh0], []
+
+    # name: (function, whether its first outputs are held at GRAD_TOL (sums
+    # over the rows) rather than TOL; the second list is always at TOL)
+    cases = {"radiance_norm_codes": (k3f, False), "radiance_norm_bwd_codes": (k3b, True),
+             "radiance_split": (k8af, False), "radiance_split_bwd": (k8ab, True),
+             "radiance_mlp": (k8bf, False), "radiance_mlp_bwd": (k8bb, True)}
+    ok, errs, ms = True, {}, {}
+    with torch.no_grad():
+        for name, (fn, grads) in cases.items():
+            errs[name] = {}
+            for dname, d in (("float32", None), ("bfloat16", torch.bfloat16)):
+                (a, a_at_tol), (b, b_at_tol) = fn(d, False), fn(d, True)
+                torch.cuda.synchronize()
+                r1, e1 = _ratio(zip(a, b), *(GRAD_TOL if grads else TOL)[dname])
+                r2, e2 = _ratio(zip(a_at_tol, b_at_tol), *TOL[dname])
+                r, e = max(r1, r2), max(e1, e2)
+                print(f"check {name:23s} {dname:8s} max_abs_err {e:.3e}; worst err / tolerance "
+                      f"{r:.3e} {'ok' if r <= 1.0 else 'FAIL'}", flush=True)
+                ok = ok and r <= 1.0
+                errs[name][dname] = e
+                del a, b, a_at_tol, b_at_tol
+            bf = torch.bfloat16
+            ms[name] = (cuda_ms(lambda: fn(bf, False)), cuda_ms(lambda: fn(bf, True), reps=3,
+                                                                 warmup=1))
+
+    # bounds at bf16: FLOP and bytes (each input read once, each output
+    # written once) of this run's shapes
+    n0, w_bytes = ws[0].shape[1], nbytes(*ws, *bs)
+    d0n = h0.shape[1]
+    C = code.shape[1]
+
+    def bwd_flops(wl, cols_out):
+        # the hidden layers again, every dW, the propagation below the top,
+        # and layer 0's input cotangent over the columns that have an output
+        return (mlp_flops(wl[:-1], n) + mlp_flops(wl, n) + mlp_flops(wl[1:], n)
+                + 2.0 * n * n0 * cols_out)
+
+    in_k3 = n * (3 * 4 + sv.shape[1] * 2 + F * 2 + C * 4)
+    in_k8a = n * (3 * 4 + sv.shape[1] * 4 + F * 2 + C * 4)
+    bounds = {
+        "radiance_norm_codes": bound_ms(mlp_flops(ws, n), in_k3 + n * 24 + w_bytes,
+                                        H100_BF16_FLOPS),
+        "radiance_norm_bwd_codes": bound_ms(bwd_flops(ws, 3 + F + C), in_k3 + n * (6 + 6)
+                                            + n * (12 + F * 2 + C * 4) + 2 * w_bytes,
+                                            H100_BF16_FLOPS),
+        "radiance_split": bound_ms(mlp_flops(ws, n), in_k8a + n * 12 + w_bytes, H100_BF16_FLOPS),
+        "radiance_split_bwd": bound_ms(bwd_flops(ws, 3 + F + C), in_k8a + n * 12
+                                       + n * (12 + F * 2 + C * 4) + 2 * w_bytes,
+                                       H100_BF16_FLOPS),
+        "radiance_mlp": bound_ms(mlp_flops(nws, n), n * d0n * 4 + n * 12 + nbytes(*nws, *bs),
+                                 H100_BF16_FLOPS),
+        "radiance_mlp_bwd": bound_ms(bwd_flops(nws, d0n), n * d0n * 4 + n * 12 + n * d0n * 4
+                                     + 2 * nbytes(*nws, *bs), H100_BF16_FLOPS),
+    }
+    for name in cases:
+        (b, by), (k, pl) = bounds[name], ms[name]
+        entry = {"max_abs_err": errs[name]["bfloat16"], "max_abs_err_f32": errs[name]["float32"],
+                 "ms": k, "plain_ms": pl, "bound_ms": b, "bound_by": by}
+        if name.endswith("_codes"):  # K3 with the code operand: beside its code-free numbers
+            results[name.removesuffix("_codes")].update(
+                {f"{k_}_codes": v for k_, v in entry.items()}, rows_codes=n, d0_codes=ws[0].shape[0])
+        else:
+            results[name] = {**entry, "library_ms": None, "rows": n,
+                             "d0": d0n if name.startswith("radiance_mlp") else ws[0].shape[0]}
+    print(f"radiance kernels (bf16, ms per launch): "
+          f"{json.dumps({k: {'ms': v[0], 'plain_ms': v[1], 'bound_ms': bounds[k][0]} for k, v in ms.items()})}",
+          flush=True)
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("a radiance kernel disagrees with its plain version beyond the stated tolerance")
+
+
+def path_config(which: str, dname: str):
+    """The configuration of a main path's model (PATHS) at a dtype."""
+    from monosdf_torch.cli.eval import bench_config, union_codes_config
+
+    if which in ("mlp", "grids"):
+        return bench_config(which == "grids", dname)
+    cfg = union_codes_config(dname)
+    return dataclasses.replace(cfg, rgb_backend="pallas") if which == "codes_split" else cfg
+
+
+def chunks_of(frames, model, cfg) -> list:
+    """The 1024-ray chunks of every frame, as cli/eval.py cuts them, each
+    with its rays' per-image codes (None without codes)."""
     out = []
     for f in frames:
         rays = f["rays"]
+        code = None
+        if cfg.rendering.per_image_code:
+            code = model.rendering.embeddings.detach()[f["frame_idx"]]
         for i in range(0, rays["rays_o"].shape[0], CHUNK):
-            out.append({k: v[i:i + CHUNK] for k, v in rays.items()})
+            c = {k: v[i:i + CHUNK] for k, v in rays.items()}
+            out.append((c, None if code is None else code[None].expand(c["rays_o"].shape[0], -1)))
     return out
 
 
-def render_phase(dev, grids: bool = False):
-    """Phase 4 (phase 7 with ``grids``): full-width renders of the bench's
-    MLP (or grid) model through cli/eval.py, then chunk by chunk with the
-    plain versions in place. Returns the timings and, per dtype, the model
-    and one chunk for the profile phase."""
-    from monosdf_torch.cli.eval import OUTPUT_KEYS, bench_config, evaluate, scene_frames
+def render_phase(dev, which: str = "mlp"):
+    """Phase 4 (7, 8): full-width renders of a main path's model (PATHS)
+    through cli/eval.py, then chunk by chunk with the plain versions in
+    place. Returns the timings and, per dtype, the model and one chunk for
+    the profile phase."""
+    from monosdf_torch.cli.eval import OUTPUT_KEYS, evaluate, scene_frames
     from monosdf_torch.data.synthetic import make_synthetic_sphere_scene
     from monosdf_torch.kernels import build
     from monosdf_torch.models.monosdf import render_rays, render_samples
 
     frames = scene_frames(make_synthetic_sphere_scene(n_images=4, img_res=64), dev)
-    per_chunk = PER_CHUNK_GRIDS if grids else PER_CHUNK
-    tag = "render grids" if grids else "render"
+    suffix, per_chunk, _ = PATHS[which]
+    tag = "render" + suffix.replace("_", " ")
     info, runs = {}, {}
     for dname in ("bfloat16", "float32"):
-        cfg = bench_config(grids, dname)
+        cfg = path_config(which, dname)
         model = perturbed_model(cfg, dev)
         run_frames = frames if dname == "bfloat16" else frames[:2]
-        chunks = chunks_of(run_frames)
+        chunks = chunks_of(run_frames, model, cfg)
 
         # the main path: cli/eval.py's render of every view, launches counted
         torch.cuda.synchronize()
@@ -726,16 +923,18 @@ def render_phase(dev, grids: bool = False):
         # like for like: each chunk with the kernels, then with each kernel's
         # plain version in its wrapper's place, through the sampler (full) and
         # at the kernel render's own samples (fixed)
-        outs_k = [render_rays(model, cfg, c) for c in chunks]
+        outs_k = [render_rays(model, cfg, c, image_code=ic) for c, ic in chunks]
         use_plain_versions(True)
         build.reset_launch_counts()
-        outs_full = [render_rays(model, cfg, c) for c in chunks]
-        outs_fixed = [render_samples(model, cfg, c, o["z_vals"]) for c, o in zip(chunks, outs_k)]
+        outs_full = [render_rays(model, cfg, c, image_code=ic) for c, ic in chunks]
+        outs_fixed = [render_samples(model, cfg, c, o["z_vals"], ic)
+                      for (c, ic), o in zip(chunks, outs_k)]
         use_plain_versions(False)
         if any(build.launches.values()):
             fail(f"the plain-version renders launched kernels: {build.launches}")
+        like = RENDER_LIKE_MAX_ABS_CODES if which.startswith("codes") else RENDER_LIKE_MAX_ABS
         for what, outs_p, limits in (("fixed samples", outs_fixed, RENDER_FIXED_MAX_ABS),
-                                     ("through the sampler", outs_full, RENDER_LIKE_MAX_ABS)):
+                                     ("through the sampler", outs_full, like)):
             errs = {k: max(max_err(a[k], b[k])[0] for a, b in zip(outs_k, outs_p))
                     for k in OUTPUT_KEYS}
             print(f"{tag} {dname}: kernels vs plain versions, {what}: max abs "
@@ -754,38 +953,42 @@ def render_phase(dev, grids: bool = False):
               flush=True)
 
         # ms per 1024-ray chunk, CUDA events after a warm-up
-        rays = chunks[0]
-        ms_k = cuda_ms(lambda: render_rays(model, cfg, rays), reps=5)
+        rays, ic = chunks[0]
+        ms_k = cuda_ms(lambda: render_rays(model, cfg, rays, image_code=ic), reps=5)
         use_plain_versions(True)
-        ms_p = cuda_ms(lambda: render_rays(model, cfg, rays), reps=5)
+        ms_p = cuda_ms(lambda: render_rays(model, cfg, rays, image_code=ic), reps=5)
         use_plain_versions(False)
         print(f"{tag} {dname}: kernels {ms_k:.3f} ms/chunk ({CHUNK / ms_k * 1e3:.1f} rays/s), "
               f"plain versions {ms_p:.3f} ms/chunk ({CHUNK / ms_p * 1e3:.1f} rays/s)", flush=True)
         info[dname] = {"ms_per_chunk": ms_k, "plain_ms_per_chunk": ms_p,
                        "rays_per_s": CHUNK / ms_k * 1e3}
-        runs[dname] = (model, cfg, rays)
+        runs[dname] = (model, cfg, rays, ic)
     return info, runs
 
 
 def _loss_and_grads(model, cfg, batch, z_vals, eik):
     """The MonoSDF loss and every parameter gradient at fixed samples and
-    eikonal points."""
+    eikonal points (with per-image codes, each ray's frame's code, as the
+    training step gathers them)."""
     from monosdf_torch.losses import LossConfig, monosdf_loss
     from monosdf_torch.models.monosdf import render_samples
 
     model.zero_grad(set_to_none=True)
-    out = render_samples(model, cfg, batch["rays"], z_vals, eik_points=eik)
+    code = None
+    if cfg.rendering.per_image_code:
+        code = model.rendering.embeddings[batch["indices"]]
+    out = render_samples(model, cfg, batch["rays"], z_vals, code, eik_points=eik)
     loss = monosdf_loss(LossConfig(), out, batch["gt"])["loss"]
     loss.backward()
     return loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
-def train_phase(dev, grids: bool = False):
-    """Phase 5 (phase 7 with ``grids``): cli/train.py's step of the bench's
-    MLP (or grid) model at full width in bf16 (warm-up, timed steps,
-    launches per step, loss trajectory), the plain versions' step time, and
-    the like-for-like step check in bf16 and float32."""
-    from monosdf_torch.cli.eval import bench_config
+def train_phase(dev, which: str = "mlp"):
+    """Phase 5 (7, 8): cli/train.py's step of a main path's model (PATHS)
+    at full width in bf16 (warm-up, timed steps, launches per step, loss
+    trajectory), the plain versions' step time, and the like-for-like step
+    check in bf16 and float32 (with codes, the embeddings' gradient
+    included)."""
     from monosdf_torch.cli.train import make_trainer, ray_batches
     from monosdf_torch.data.synthetic import make_synthetic_sphere_scene
     from monosdf_torch.kernels import build
@@ -794,9 +997,9 @@ def train_phase(dev, grids: bool = False):
     scene = make_synthetic_sphere_scene(n_images=4, img_res=64)
     batches = ray_batches(scene, np.random.default_rng(SEED), WARMUP_STEPS + TIMED_STEPS + 1,
                           CHUNK, dev)
-    per_step = PER_STEP_GRIDS if grids else PER_STEP
-    what = "train grids" if grids else "train"
-    cfg = bench_config(grids, "bfloat16")
+    suffix, _, per_step = PATHS[which]
+    what = "train" + suffix.replace("_", " ")
+    cfg = path_config(which, "bfloat16")
     model = init_monosdf(cfg, seed=SEED, device=dev)
     step = make_trainer(model, cfg)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -851,7 +1054,7 @@ def train_phase(dev, grids: bool = False):
     # each kernel's plain version in its place
     batch = batches[-1]
     for dname in ("bfloat16", "float32"):
-        cfg_d = bench_config(grids, dname)
+        cfg_d = path_config(which, dname)
         model_d = perturbed_model(cfg_d, dev)
         z_vals, eik = sample_rays(model_d, cfg_d, batch["rays"], True,
                                   generator=torch.Generator(device=dev).manual_seed(SEED + 3))
@@ -882,13 +1085,20 @@ def train_phase(dev, grids: bool = False):
               f"launches {counts_k}", flush=True)
         # the samples are fixed: the sampler's kernels (and the sweeps' K6) do not run
         expect_k = {**per_step, "sdf_mlp": 0, "sampler_machinery": 0}
-        if grids:
+        if which == "grids":
             expect_k["hash_encode"] -= per_step["sdf_mlp"]
         if counts_k != expect_k:
             fail(f"{what} step check launches {counts_k} != {expect_k}")
         if worst > 1.0 or l_ratio > 1.0:
             fail(f"{what} step check {dname}: kernels vs plain versions beyond the stated "
                  "tolerance")
+        if cfg_d.rendering.per_image_code:
+            # the rows of the batch's frames get a gradient, the others none
+            frames = torch.unique(batch["indices"])
+            live = gk["rendering.embeddings"].abs().amax(-1) > 0
+            if len(frames) < 2 or not live[frames].all() or int(live.sum()) != len(frames):
+                fail(f"{what} step check {dname}: embeddings gradient rows "
+                     f"{torch.nonzero(live).flatten().tolist()} != frames {frames.tolist()}")
         info[f"step_check_{dname}"] = {"loss_kernels": lk, "loss_plain": lp,
                                        "worst_grad_ratio": worst, "worst_param": worst_name}
         del model_d, gk, gp
@@ -935,13 +1145,13 @@ def _profile(fn, reps: int, what: str) -> dict:
 
 
 def profile_phase(runs, info, train_run, train_info, what: str = ""):
-    """Phase 6 (and 7): device time per kernel over PROFILE_CHUNKS renders
-    of the timed chunk and over one training step (torch.profiler), and the
-    device's busy share."""
+    """Phase 6 (7, 8): device time per kernel over PROFILE_CHUNKS renders
+    of the timed chunk (for each dtype in ``runs``) and over one training
+    step (torch.profiler), and the device's busy share."""
     from monosdf_torch.models.monosdf import render_rays
 
-    for dname, (model, cfg, rays) in runs.items():
-        prof = _profile(lambda: render_rays(model, cfg, rays), PROFILE_CHUNKS,
+    for dname, (model, cfg, rays, ic) in runs.items():
+        prof = _profile(lambda: render_rays(model, cfg, rays, image_code=ic), PROFILE_CHUNKS,
                         f"render{what} {dname}")
         prof["ms_per_chunk"] = prof.pop("ms")
         info[dname].update(profile=prof)
@@ -951,6 +1161,88 @@ def profile_phase(runs, info, train_run, train_info, what: str = ""):
     prof["ms_per_step"] = prof.pop("ms")
     train_info["profile"] = prof
     print(f"profile{what} train bf16: {json.dumps(prof)}", flush=True)
+
+
+def nerf_phase(dev):
+    """Phase 9: fields.rendering_apply_pallas in nerf mode with codes (K8b
+    on h0 = [view PE | features | code], 27 + 256 + 32 = 315 wide) at the
+    step's 100,352 samples, forward and backward through autograd, launches
+    counted from 0, against rendering_apply (the plain path through
+    torch's autograd): rgb at TOL, every parameter, feature and code
+    gradient at STEP_TOL, in float32 and bf16; ms of forward + backward
+    both ways."""
+    from monosdf_torch.kernels import build
+    from monosdf_torch.models.fields import (
+        RenderingNetConfig,
+        init_rendering_net,
+        rendering_apply,
+        rendering_apply_pallas,
+    )
+
+    cfg = RenderingNetConfig(feature_vector_size=256, dims=(256, 256), mode="nerf", d_in=3,
+                             multires_view=4, per_image_code=True)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    ren = init_rendering_net(cfg, gen)
+    with torch.no_grad():
+        for p in ren.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    ren = ren.to(dev)
+    rng = np.random.default_rng(SEED + 6)
+    n = CHUNK * 98
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    x, d = t(rng.uniform(-1.1, 1.1, (n, 3))), t(rng.normal(size=(n, 3)))
+    d = d / d.norm(dim=-1, keepdim=True)
+    feat32, target = t(rng.normal(size=(n, 256))), t(rng.uniform(0, 1, (n, 3)))
+    idx = torch.from_numpy(rng.integers(0, 4, n)).to(dev)  # the rows of 4 frames
+
+    def run(fn, dt):
+        ren.zero_grad(set_to_none=True)
+        f = feat32.to(dt or torch.float32).detach().requires_grad_()
+        out = fn(ren, cfg, x, d, d, f, ren.embeddings[idx], dtype=dt)["rgb"]
+        ((out - target) ** 2).mean().backward()
+        grads = {nm: p.grad.detach().clone() for nm, p in ren.named_parameters()}
+        return out.detach(), {**grads, "features": f.grad.detach().float()}
+
+    info, ok = {"rows": n, "d0": cfg.layer_dims[0]}, True
+    for dname, dt in (("float32", None), ("bfloat16", torch.bfloat16)):
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        rgb_k, gk = run(rendering_apply_pallas, dt)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in build.launches.items() if v}
+        rgb_p, gp = run(rendering_apply, dt)
+        r_rgb, e_rgb = _ratio([(rgb_k, rgb_p)], *TOL[dname])
+        atol, rtol, _ = STEP_TOL[dname]
+        worst, worst_name = 0.0, ""
+        for nm in gk:
+            a, b = gk[nm].float(), gp[nm].float()
+            if not torch.isfinite(a).all():
+                fail(f"nerf radiance {dname}: gradient {nm} not finite")
+            if dname == "float32":
+                r = float(((a - b).abs() / (atol + rtol * b.abs())).max())
+            else:
+                r = float((a - b).abs().max()) / (atol + rtol * float(b.abs().max()))
+            if r > worst:
+                worst, worst_name = r, nm
+        good = counts == {"radiance_mlp": 1, "radiance_mlp_bwd": 1} and max(r_rgb, worst) <= 1.0
+        print(f"nerf radiance {dname}: rgb max abs err {e_rgb:.3e} (err / tolerance "
+              f"{r_rgb:.3e}); worst gradient err / tolerance {worst:.3e} ({worst_name}); "
+              f"launches {counts} {'ok' if good else 'FAIL'}", flush=True)
+        ok = ok and good
+        info[dname] = {"rgb_max_abs_err": e_rgb, "worst_grad_ratio": worst,
+                       "worst_param": worst_name}
+        if dname == "bfloat16":
+            info["launches"] = {k: counts.get(k, 0) for k in TPU_KERNELS}
+    bf = torch.bfloat16
+    info["ms_fwd_bwd"] = cuda_ms(lambda: run(rendering_apply_pallas, bf), reps=5)
+    info["plain_ms_fwd_bwd"] = cuda_ms(lambda: run(rendering_apply, bf), reps=5)
+    print(f"nerf radiance bf16: forward + backward {info['ms_fwd_bwd']:.3f} ms with K8b, "
+          f"{info['plain_ms_fwd_bwd']:.3f} ms plain", flush=True)
+    del ren
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("the nerf radiance check failed")
+    return info
 
 
 def main(argv):
@@ -983,27 +1275,34 @@ def main(argv):
     del model
     torch.cuda.empty_cache()
     grid_kernel_checks(dev, results)
+    radiance_kernel_checks(dev, results)
     if "--kernels" in argv:
         print(json.dumps(results))
         return
-    info, runs = render_phase(dev)
-    train_info, train_run = train_phase(dev)
-    profile_phase(runs, info, train_run, train_info)
-    del runs, train_run
-    torch.cuda.empty_cache()
-    ginfo, gruns = render_phase(dev, grids=True)
-    gtrain_info, gtrain_run = train_phase(dev, grids=True)
-    profile_phase(gruns, ginfo, gtrain_run, gtrain_info, " grids")
+    # the main paths, each render and each set of timed steps counted from 0
+    lines = {}
+    for which in PATHS:
+        suffix = PATHS[which][0]
+        rinfo, runs = render_phase(dev, which)
+        tinfo, train_run = train_phase(dev, which)
+        # render profiles of the bench models; one step of every model
+        profile_phase(runs if which in ("mlp", "grids") else {}, rinfo, train_run, tinfo,
+                      suffix.replace("_", " "))
+        lines[f"render{suffix}"], lines[f"train{suffix}"] = rinfo, tinfo
+        del runs, train_run
+        torch.cuda.empty_cache()
+    lines["nerf_radiance"] = nerf_phase(dev)
 
     kernels = []
     for name in build.SOURCES:
         r = results[name]
         # the main paths' runs, each counted from 0: the bf16 renders (16
-        # chunks each) and the timed training steps of both models
-        runs_n = {"launches_render": info["launches"][name],
-                  "launches_train": train_info["launches"][name],
-                  "launches_render_grids": ginfo["launches"][name],
-                  "launches_train_grids": gtrain_info["launches"][name]}
+        # chunks each), the timed training steps of every model, the nerf check
+        runs_n = {f"launches_{tag}": line["launches"][name] for tag, line in lines.items()}
+        per = {}
+        for which, (suffix, per_chunk, per_step) in PATHS.items():
+            per[f"launches_per_chunk{suffix}"] = per_chunk[name]
+            per[f"launches_per_step{suffix}"] = per_step[name]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1011,18 +1310,13 @@ def main(argv):
             "replaces": TPU_KERNELS[name],
             "launches": sum(runs_n.values()),
             **runs_n,
-            "launches_per_chunk": PER_CHUNK[name],
-            "launches_per_step": PER_STEP[name],
-            "launches_per_chunk_grids": PER_CHUNK_GRIDS[name],
-            "launches_per_step_grids": PER_STEP_GRIDS[name],
+            **per,
             "library_ms": None,
             **r,
             "kernel_ms": r["ms"],
         })
-    print(json.dumps({"render": info}))
-    print(json.dumps({"train": train_info}))
-    print(json.dumps({"render_grids": ginfo}))
-    print(json.dumps({"train_grids": gtrain_info}))
+    for tag, line in lines.items():
+        print(json.dumps({tag: line}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

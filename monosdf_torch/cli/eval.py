@@ -4,8 +4,12 @@
 Each frame is rendered in chunks of ``split_n_pixels`` rays through
 ``models.render_rays`` (eval); per-frame PSNR is printed and written to
 ``<out_dir>/psnr.csv``. The model is the bench's ScanNet-MLP configuration
-(``bench_mlp_config``), or with ``--grids`` the hash-grid model of
-``bench.py --grids`` (``bench_grids_config``); its parameters come from
+(``bench_mlp_config``), with ``--grids`` the hash-grid model of
+``bench.py --grids`` (``bench_grids_config``), or with ``--union`` the
+appearance-code model of ``confs/synth_union_quality.conf``
+(``union_codes_config``: each frame renders with its own per-image code;
+``--rgb_backend pallas`` takes its radiance through K8a instead of K3); its
+parameters come from
 ``--params`` (an ``.npz``
 written by ``params.save_params_npz``, e.g. from a JAX checkpoint) or from
 the port's own initialisation (``--init_seed``). The scene is the synthetic
@@ -13,12 +17,14 @@ sphere. Runs on the card unless ``--device cpu``.
 
     python -m monosdf_torch.cli.eval --n_images 4 --img_res 64 --out_dir evaluation
     python -m monosdf_torch.cli.eval --grids --out_dir evaluation_grids
+    python -m monosdf_torch.cli.eval --union --out_dir evaluation_union
 """
 
 from __future__ import annotations
 
 import argparse
 import csv
+import dataclasses
 import os
 
 import numpy as np
@@ -102,8 +108,65 @@ def bench_grids_config(compute_dtype: str = "bfloat16") -> MonoSDFConfig:
     )
 
 
+def union_codes_config(compute_dtype: str = "bfloat16") -> MonoSDFConfig:
+    """The appearance-code model of ``confs/synth_union_quality.conf``, as
+    ``monosdf_tpu.config.schema.build_configs`` builds it: 8x256 SDF MLP
+    with a skip at 4 and PE(6), bias 0.6, outside-in (``inside_outside``
+    False), no SDF clamp (the schema turns it off under ``white_bkgd``); a
+    2x256 radiance MLP with view PE(4) and a 32-wide per-image code (1024
+    rows, the ``RenderingNetConfig`` defaults); a white background; the
+    sampler in the 1.1 sphere (sphere intersection, 64/128/32 samples, eps
+    0.1, 10 bisections, 5 iterations). bf16 operands with float32 sums
+    (or ``compute_dtype='float32'``); the kernel backends, the radiance
+    through K3 (``rgb_backend='fused'``, the conf's)."""
+    mixed = compute_dtype != "float32"
+    return MonoSDFConfig(
+        implicit=ImplicitNetConfig(
+            feature_vector_size=256, dims=(256,) * 8, skip_in=(4,), multires=6,
+            inside_outside=False, bias=0.6, sdf_bounding_sphere=0.0,
+        ),
+        rendering=RenderingNetConfig(feature_vector_size=256, dims=(256, 256), multires_view=4,
+                                     per_image_code=True),
+        sampler=SamplerConfig(
+            scene_bounding_sphere=1.1, N_samples=64, N_samples_eval=128, N_samples_extra=32,
+            eps=0.1, beta_iters=10, max_total_iters=5, intersection="sphere",
+            machinery="pallas", machinery_dtype=compute_dtype,
+        ),
+        white_bkgd=True,
+        compute_dtype=compute_dtype,
+        mixed_precision=mixed,
+        sampler_backend="pallas",
+        diff_backend="pallas",
+        rgb_backend="fused",
+    )
+
+
 def bench_config(grids: bool, compute_dtype: str = "bfloat16") -> MonoSDFConfig:
     return (bench_grids_config if grids else bench_mlp_config)(compute_dtype)
+
+
+def model_config(args, compute_dtype: str = "bfloat16") -> MonoSDFConfig:
+    """The model an entry point's flags name (``--union``, ``--grids`` or
+    the bench's MLP model), with ``--rgb_backend`` when given."""
+    if args.union:
+        cfg = union_codes_config(compute_dtype)
+    else:
+        cfg = bench_config(args.grids, compute_dtype)
+    if args.rgb_backend is not None:
+        cfg = dataclasses.replace(cfg, rgb_backend=args.rgb_backend)
+    return cfg
+
+
+def add_model_args(ap):
+    """The model flags of both entry points."""
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--grids", action="store_true",
+                       help="the hash-grid model of bench.py --grids")
+    which.add_argument("--union", action="store_true",
+                       help="the appearance-code model of confs/synth_union_quality.conf")
+    ap.add_argument("--rgb_backend", default=None, choices=("fused", "pallas"),
+                    help="the radiance through K3 (fused; needs the MLP trunk's K2) or K8a "
+                         "(pallas); default: the model's own")
 
 
 def scene_frames(scene: dict, device) -> list:
@@ -119,11 +182,15 @@ def scene_frames(scene: dict, device) -> list:
     return frames
 
 
-def render_image(model, cfg: MonoSDFConfig, rays: dict, split_n_pixels: int = 1024) -> dict:
-    """rgb_values, depth_values and normal_map of one view, in chunks."""
+def render_image(model, cfg: MonoSDFConfig, rays: dict, split_n_pixels: int = 1024,
+                 image_code=None) -> dict:
+    """rgb_values, depth_values and normal_map of one view, in chunks;
+    ``image_code`` (C,): the view's per-image code, given to every ray."""
 
     def render_chunk(o, d, s, p):
-        out = render_rays(model, cfg, {"rays_o": o, "rays_d": d, "depth_scale": s, "pose": p})
+        ic = None if image_code is None else image_code[None].expand(o.shape[0], -1)
+        out = render_rays(model, cfg, {"rays_o": o, "rays_d": d, "depth_scale": s, "pose": p},
+                          image_code=ic)
         return {k: out[k] for k in OUTPUT_KEYS}
 
     return chunked_apply(render_chunk, rays["rays_o"].shape[0], split_n_pixels,
@@ -131,10 +198,14 @@ def render_image(model, cfg: MonoSDFConfig, rays: dict, split_n_pixels: int = 10
 
 
 def evaluate(model, cfg: MonoSDFConfig, frames: list, split_n_pixels: int = 1024):
-    """Render every frame; returns ([(frame, psnr)], [render dict])."""
+    """Render every frame (with per-image codes, frame i with row i of
+    ``rendering.embeddings``); returns ([(frame, psnr)], [render dict])."""
     rows, renders = [], []
     for fr in frames:
-        out = render_image(model, cfg, fr["rays"], split_n_pixels)
+        code = None
+        if cfg.rendering.per_image_code:
+            code = model.rendering.embeddings.detach()[fr["frame_idx"]]
+        out = render_image(model, cfg, fr["rays"], split_n_pixels, code)
         rows.append((fr["frame_idx"], psnr(out["rgb_values"].cpu().numpy(), fr["rgb"])))
         renders.append(out)
     return rows, renders
@@ -142,7 +213,7 @@ def evaluate(model, cfg: MonoSDFConfig, frames: list, split_n_pixels: int = 1024
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--grids", action="store_true", help="the hash-grid model of bench.py --grids")
+    add_model_args(ap)
     ap.add_argument("--params", default=None, help=".npz of a JAX parameter tree")
     ap.add_argument("--init_seed", type=int, default=0)
     ap.add_argument("--n_images", type=int, default=4)
@@ -153,7 +224,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = bench_config(args.grids)
+    cfg = model_config(args)
     model = init_monosdf(cfg, seed=args.init_seed, device=device)
     if args.params:
         load_jax_params(model, load_params_npz(args.params))

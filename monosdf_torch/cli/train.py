@@ -2,11 +2,15 @@
 work ``bench.py`` times (``monosdf_tpu/train/step.py make_train_step`` on
 1024-ray batches: render, MonoSDF loss, backward, Adam). ``--grids`` trains
 the hash-grid model of ``bench.py --grids`` instead, with the grid-mode Adam
-(three parameter groups, the table's at 20x the learning rate).
+(three parameter groups, the table's at 20x the learning rate); ``--union``
+the appearance-code model of ``confs/synth_union_quality.conf``, each ray
+with its frame's per-image code (a row of ``rendering.embeddings``, trained
+with the rest); ``--rgb_backend pallas`` takes the radiance through K8a
+instead of K3.
 
-The model is ``cli/eval.py bench_mlp_config`` or ``bench_grids_config``
-(bf16 operands with float32 sums, or ``--compute_dtype float32``), from the
-port's initialisation
+The model is ``cli/eval.py bench_mlp_config``, ``bench_grids_config`` or
+``union_codes_config`` (bf16 operands with float32 sums, or
+``--compute_dtype float32``), from the port's initialisation
 (``--init_seed``) or an ``.npz`` of a JAX parameter tree (``--params``),
 trained with ``LossConfig()`` and ``OptimConfig()`` (Adam, lr 5e-4, decay
 over 150,000 steps), as ``bench.py``. Each step draws a fresh ray batch
@@ -19,6 +23,7 @@ renders: the trainer's other features come with a later slice.
 
     python -m monosdf_torch.cli.train --steps 20 --out trained.npz
     python -m monosdf_torch.cli.train --grids --steps 20 --out trained_grids.npz
+    python -m monosdf_torch.cli.train --union --steps 20 --out trained_union.npz
 """
 
 from __future__ import annotations
@@ -34,16 +39,19 @@ from ..losses import LossConfig
 from ..models.monosdf import init_monosdf
 from ..params import load_jax_params, load_params_npz, params_to_tree, save_params_npz
 from ..train import OptimConfig, make_optimizer, make_train_step
-from .eval import bench_config
+from .eval import add_model_args, bench_config, model_config
 
 
 def ray_batches(scene: dict, rng: np.random.Generator, n: int, num_rays: int, device) -> list:
-    """n distinct ray batches of ``num_rays`` random pixels, on ``device``."""
+    """n distinct ray batches of ``num_rays`` random pixels, on ``device``:
+    rays, ground truth and each ray's frame (``indices``, int64)."""
     out = []
     for _ in range(n):
         b = sample_ray_batch(scene, rng, num_rays)
-        out.append({k: {kk: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                        for kk, v in b[k].items()} for k in ("rays", "gt")})
+        batch = {k: {kk: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                     for kk, v in b[k].items()} for k in ("rays", "gt")}
+        batch["indices"] = torch.from_numpy(b["indices"].astype(np.int64)).to(device)
+        out.append(batch)
     return out
 
 
@@ -57,7 +65,7 @@ def make_trainer(model, cfg):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--grids", action="store_true", help="the hash-grid model of bench.py --grids")
+    add_model_args(ap)
     ap.add_argument("--params", default=None, help=".npz of a JAX parameter tree")
     ap.add_argument("--init_seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=20)
@@ -70,7 +78,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = bench_config(args.grids, args.compute_dtype)
+    cfg = model_config(args, args.compute_dtype)
     model = init_monosdf(cfg, seed=args.init_seed, device=device)
     if args.params:
         load_jax_params(model, load_params_npz(args.params))

@@ -1,6 +1,6 @@
-// Shared pieces of the MLP kernels (sdf_mlp.cu, sdf_grad.cu, sdf_grad_grid.cu,
-// radiance_norm.cu and the backward kernels sdf_grad_bwd.cu,
-// sdf_grad_grid_bwd.cu, radiance_norm_bwd.cu) and the C-interface helpers of
+// Shared pieces of the MLP kernels (sdf_mlp.cu, sdf_grad.cu, sdf_grad_grid.cu
+// and the backward kernels sdf_grad_bwd.cu, sdf_grad_grid_bwd.cu; the
+// radiance kernels through radiance.cuh) and the C-interface helpers of
 // every kernel library.
 //
 // The MLP kernels keep one tile of activations (TILE_M rows) in shared

@@ -1,122 +1,52 @@
-// K3 forward: the radiance trunk with in-kernel normal normalisation.
+// K3 forward: the radiance trunk with in-kernel normal normalisation and
+// the per-image code operand.
 //
 // Replaces monosdf_tpu/ops/pallas_rgb_grad.py _radiance_norm_fwd_pallas
 // (pl.pallas_call at :708), the forward of radiance_norm. A block takes 64
 // samples: it normalises the SDF gradient, n = g / (sqrt(max(|g|^2, 1e-24))
 // + 1e-6), writes n out, and runs the ReLU trunk over the first-layer input
-// [points, view PE, n, features] (W0's natural row order) without it
-// leaving shared memory. With BF16 the operands are rounded to bf16, and
-// each hidden pre-activation is rounded to bf16 before the bias add and the
-// ReLU, as in the TPU kernel. The last layer (3 outputs) stays float32: the
-// sigmoid is applied outside.
+// [points, view PE, n, features, code] (W0's natural row order; the code
+// when given) without it leaving shared memory (radiance.cuh). g and the
+// code are float32, the rest at the operand type; with BF16 every operand
+// is rounded to bf16 at the product and each hidden pre-activation before
+// the bias add and the ReLU, as in the TPU kernel. The last layer (3
+// outputs) stays float32: the sigmoid is applied outside.
 //
-// Bound on the card: operations (about 2.8e10 FLOP per 100,352-sample chunk
-// against ~55 MB of bf16 features and outputs). This first version runs
-// float32 FMAs on the CUDA cores.
-#include "common.cuh"
+// Bound on the card: operations (about 3.0e10 FLOP per 100,352-sample
+// chunk with a 32-wide code, against ~62 MB of operands and outputs). This
+// first version runs float32 FMAs on the CUDA cores.
+#include "radiance.cuh"
 
 using namespace mk;
 
 template <bool BF16>
 __global__ void __launch_bounds__(THREADS)
-radiance_norm_kernel(const float* __restrict__ g, const void* __restrict__ sv, int ds,
-                     const void* __restrict__ feat, int F, int N, MlpDesc d,
+radiance_norm_kernel(const __grid_constant__ RadIn in, int N, const __grid_constant__ MlpDesc d,
                      const float* __restrict__ P, float* __restrict__ rgb_out,
                      float* __restrict__ nrm_out) {
   extern __shared__ __align__(16) float smem[];
-  float* Ns = smem;  // TILE_M x 3 normals (in the X0 slot)
-  float* cur = smem + TILE_M * LD0;
-  float* nxt = cur + TILE_M * LDA;
-  float* Ws = nxt + TILE_M * LDA;
-  float* Zn = Ws + KT * TILE_N;
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  const int row0 = blockIdx.x * TILE_M;
-
-  if (tid < TILE_M) {
-    const int r = row0 + tid;
-    float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
-    if (r < N) {
-      g0 = g[(size_t)r * 3];
-      g1 = g[(size_t)r * 3 + 1];
-      g2 = g[(size_t)r * 3 + 2];
-    }
-    const float q = sqrtf(fmaxf(g0 * g0 + g1 * g1 + g2 * g2, 1e-24f)) + 1e-6f;
-    const float n[3] = {g0 / q, g1 / q, g2 / q};
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      Ns[tid * 3 + k] = n[k];
-      if (r < N) nrm_out[(size_t)r * 3 + k] = n[k];
-    }
-  }
-  __syncthreads();
-  const int K0 = ds + 3 + F;
-  const int Kp = round_up(K0, KT);
-  for (int idx = tid; idx < TILE_M * Kp; idx += THREADS) {
-    const int r = idx / Kp, c = idx - r * Kp;
-    const size_t gr = (size_t)(row0 + r);
-    float v = 0.0f;
-    if (row0 + r < N) {
-      if (c < ds) {
-        v = load_act<BF16>(sv, gr * ds + c);
-      } else if (c < ds + 3) {
-        v = rnd<BF16>(Ns[r * 3 + (c - ds)]);
-      } else if (c < K0) {
-        v = load_act<BF16>(feat, gr * F + (c - ds - 3));
-      }
-    }
-    cur[r * LDA + c] = v;
-  }
-
-  const int L = d.n_layers;
-  for (int l = 0; l < L; ++l) {
-    __syncthreads();
-    const int K = d.kin[l], nout = d.nout[l];
-    const float* W = P + d.woff[l];
-    const float* bias = P + d.boff[l];
-    if (l < L - 1) {
-      float acc[8][8];
-      gemm_tile<BF16>(cur, LDA, K, W, nout, 0, nout, Ws, acc);
-      const int Knext = round_up(nout, KT);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = tile_col(tx, j);
-        if (c < Knext) {
-          const float bc = c < nout ? rnd<BF16>(bias[c]) : 0.0f;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const float y = c < nout ? rnd<BF16>(rnd<BF16>(acc[i][j]) + bc) : 0.0f;
-            nxt[(ty * 8 + i) * LDA + c] = fmaxf(y, 0.0f);
-          }
-        }
-      }
-      float* t = cur;
-      cur = nxt;
-      nxt = t;
-    } else {
-      gemm_narrow<BF16>(cur, LDA, K, W, nout, 0, nout, TILE_M, Zn);
-      __syncthreads();
-      for (int idx = tid; idx < TILE_M * nout; idx += THREADS) {
-        const int r = idx / nout, j = idx - r * nout;
-        if (row0 + r < N) rgb_out[(size_t)(row0 + r) * nout + j] = Zn[r * 4 + j] + bias[j];
-      }
-    }
-  }
+  rad_forward<BF16>(in, N, d, P, rgb_out, nrm_out, smem);
 }
 
 extern "C" int radiance_norm_launch(const float* g, const void* sv, int ds, const void* feat,
-                                    int F, int N, const int* desc, const float* P,
-                                    float* rgb_out, float* nrm_out, int bf16, void* stream) {
+                                    int F, const float* code, int C, int N, const int* desc,
+                                    const float* P, float* rgb_out, float* nrm_out, int bf16,
+                                    void* stream) {
   const MlpDesc d = desc_from(desc);
-  const size_t smem = MLP_SMEM_FLOATS * sizeof(float);
+  RadIn in{};
+  in.seg[0] = {sv, ds, 0};
+  in.seg[1] = {g, 3, 1};
+  in.seg[2] = {feat, F, 0};
+  in.seg[3] = {code, C, 1};
+  in.nseg = C > 0 ? 4 : 3;
+  in.d0 = ds + 3 + F + C;
+  in.norm_seg = 1;
+  const size_t smem = RAD_SMEM_FLOATS * sizeof(float);
   const dim3 grid((N + TILE_M - 1) / TILE_M);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    cudaFuncSetAttribute(radiance_norm_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    radiance_norm_kernel<true><<<grid, THREADS, smem, s>>>(g, sv, ds, feat, F, N, d, P, rgb_out, nrm_out);
-  } else {
-    cudaFuncSetAttribute(radiance_norm_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    radiance_norm_kernel<false><<<grid, THREADS, smem, s>>>(g, sv, ds, feat, F, N, d, P, rgb_out, nrm_out);
-  }
+  auto kernel = bf16 ? radiance_norm_kernel<true> : radiance_norm_kernel<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kernel<<<grid, THREADS, smem, s>>>(in, N, d, P, rgb_out, nrm_out);
   return static_cast<int>(cudaGetLastError());
 }
 

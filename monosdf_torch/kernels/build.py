@@ -28,7 +28,8 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("sdf_mlp", "sampler_machinery", "sdf_grad", "radiance_norm", "sdf_grad_bwd",
            "radiance_norm_bwd", "hash_encode", "hash_encode_bwd", "sdf_grad_grid",
-           "sdf_grad_grid_bwd")
+           "sdf_grad_grid_bwd", "radiance_split", "radiance_split_bwd", "radiance_mlp",
+           "radiance_mlp_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -20,7 +20,9 @@ from torch import nn
 
 from ..kernels.build import pack_mlp
 from ..kernels.hash_encode import encode_diff, hash_encode_fwd
+from ..kernels.radiance_mlp import mlp_with_input_grad
 from ..kernels.radiance_norm import radiance_norm
+from ..kernels.radiance_split import radiance_split
 from ..kernels.sdf_grad import pe_with_tangents, sdf_mlp_with_grad
 from ..kernels.sdf_grad_grid import sdf_mlp_with_grad_in
 from ..kernels.sdf_mlp import sdf_mlp
@@ -376,20 +378,52 @@ def rendering_apply(params: RenderingNet, cfg: RenderingNetConfig, points, norma
     return {"rgb": h.float()}
 
 
+def rendering_apply_pallas(params: RenderingNet, cfg: RenderingNetConfig, points, normals,
+                           view_dirs, feature_vectors, image_code=None, dtype=None) -> dict:
+    """rendering_apply (no specular head) through the radiance kernels:
+    in idr mode K8a (``kernels/radiance_split.py``) on the raw normals,
+    [points | view PE], the features and the per-image code as separate
+    operands; in nerf mode K8b (``kernels/radiance_mlp.py``) on h0 = [view
+    PE | features | code]. view_dirs may come encoded already (per-ray PE
+    repeated over samples). Under grad it is differentiable: the backward
+    kernels give the parameter, normal, feature and code cotangents (none
+    for the points and view directions)."""
+    if cfg.multires_view > 0 and view_dirs.shape[-1] == 3:
+        view_dirs = positional_encoding(view_dirs, cfg.multires_view)
+    code = image_code if cfg.per_image_code else None
+    if cfg.per_image_code and image_code is None:
+        raise ValueError("per_image_code needs the image_code of every sample")
+    ws, bs = effective_linear_weights(params)
+    if cfg.mode == "idr":
+        sv = torch.cat([points, view_dirs], dim=-1)
+        out = radiance_split(ws, bs, normals, sv, feature_vectors, code, dtype)
+    elif cfg.mode == "nerf":
+        parts = [view_dirs, feature_vectors.float()] + ([code] if code is not None else [])
+        out = mlp_with_input_grad(ws, bs, torch.cat(parts, dim=-1), dtype)
+    else:
+        raise NotImplementedError(cfg.mode)
+    out = torch.relu(out) if cfg.if_hdr else torch.sigmoid(out)
+    return {"rgb": out}
+
+
 def rendering_apply_pallas_wide(params: RenderingNet, cfg: RenderingNetConfig, points, g,
                                 view_dirs, feature_vectors, image_code=None,
                                 dtype=None) -> dict:
     """Radiance through K3: takes the raw SDF gradient g (N, 3), normalises
     it in-kernel and returns rgb and the normals. view_dirs may come encoded
-    already (per-ray PE repeated over samples). Under grad it is
-    differentiable: K3b gives the parameter, gradient and feature
+    already (per-ray PE repeated over samples); image_code (N, C) is the
+    per-image code of every sample (``per_image_code``). Under grad it is
+    differentiable: K3b gives the parameter, gradient, feature and code
     cotangents, with the normals' own cotangent summed in."""
-    if cfg.mode != "idr" or cfg.per_image_code:
-        raise NotImplementedError("K3 covers the idr trunk without per-image codes")
+    if cfg.mode != "idr":
+        raise NotImplementedError("K3 covers the idr trunk")
+    if cfg.per_image_code and image_code is None:
+        raise ValueError("per_image_code needs the image_code of every sample")
     if cfg.multires_view > 0 and view_dirs.shape[-1] == 3:
         view_dirs = positional_encoding(view_dirs, cfg.multires_view)
     sv = torch.cat([points, view_dirs], dim=-1)
+    code = image_code if cfg.per_image_code else None
     ws, bs = effective_linear_weights(params)
-    out, normals = radiance_norm(ws, bs, g.contiguous(), sv, feature_vectors, dtype)
+    out, normals = radiance_norm(ws, bs, g.contiguous(), sv, feature_vectors, dtype, code)
     out = torch.relu(out) if cfg.if_hdr else torch.sigmoid(out)
     return {"rgb": out, "normals": normals}

@@ -8,7 +8,9 @@ plus the eikonal points' gradients in training mode.
 
 Backends keep the JAX package's field names. ``'pallas'`` (and
 ``rgb_backend='fused'``) runs the kernel on a CUDA tensor and its plain
-version on a CPU tensor; ``'jnp'`` runs the plain PyTorch path.
+version on a CPU tensor; ``'jnp'`` runs the plain PyTorch path. With
+per-image codes (``rendering.per_image_code``) the caller passes each ray's
+``image_code`` (R, C), repeated here over the ray's samples.
 
 Grid mode (``implicit.use_grid``): the sweeps read the first
 ``sweep_max_level`` grid levels only; every encode of one render or
@@ -38,6 +40,7 @@ from .fields import (
     init_implicit_net,
     init_rendering_net,
     rendering_apply,
+    rendering_apply_pallas,
     rendering_apply_pallas_wide,
     sdf_feat_grad,
     sdf_feat_grad_pallas,
@@ -72,15 +75,16 @@ class MonoSDFConfig:
     # 'jnp' or 'pallas' (K2; in grid mode K6/K5 and K7): SDF, features and
     # spatial gradient
     diff_backend: str = "jnp"
-    # 'jnp' or 'fused' (K3, needs diff_backend='pallas' and MLP mode; grid
-    # mode renders with 'jnp'); 'pallas' (the split-operand radiance kernel)
-    # is not ported yet
+    # 'jnp'; 'fused' (K3 on the raw gradient, normalised in-kernel; needs
+    # diff_backend='pallas' and MLP mode, else the plain path); or 'pallas'
+    # (K8a on the raw gradient, idr mode, MLP and grid mode alike; the
+    # normals for the loss are normalised outside)
     rgb_backend: str = "jnp"
 
     def __post_init__(self):
         for field, ok in (("sampler_backend", ("jnp", "pallas")),
                           ("diff_backend", ("jnp", "pallas")),
-                          ("rgb_backend", ("jnp", "fused"))):
+                          ("rgb_backend", ("jnp", "fused", "pallas"))):
             if getattr(self, field) not in ok:
                 raise NotImplementedError(f"{field}={getattr(self, field)!r}; ported: {ok}")
 
@@ -283,23 +287,25 @@ def _render_samples(params, cfg, rays, z_vals, image_code, eik_points, table) ->
 
     ren_cfg = cfg.rendering
     rgb_fused = cfg.rgb_backend == "fused" and use_pallas_diff and ren_cfg.mode == "idr"
-    if rgb_fused:
+    rgb_split = cfg.rgb_backend == "pallas" and ren_cfg.mode == "idr"
+    if rgb_fused or rgb_split:
         # view dirs are constant along a ray: encode (R, 3) once, repeat over samples
         dirs_in = rays_d[:, None, :].expand(R, S, 3).reshape(R * S, 3)
         if ren_cfg.multires_view > 0:
             pe = positional_encoding(rays_d, ren_cfg.multires_view)
             dirs_in = pe[:, None, :].expand(R, S, pe.shape[-1]).reshape(R * S, -1)
-        render_out = rendering_apply_pallas_wide(
-            params.rendering, ren_cfg, points_flat, gradients, dirs_in, feature_vectors,
-            code_flat, dtype=main_dtype,
-        )
-        normals = render_out["normals"].reshape(R, S, 3)
+        apply = rendering_apply_pallas_wide if rgb_fused else rendering_apply_pallas
+        render_out = apply(params.rendering, ren_cfg, points_flat, gradients, dirs_in,
+                           feature_vectors, code_flat, dtype=main_dtype)
     else:
         dirs_flat = rays_d[:, None, :].expand(R, S, 3).reshape(R * S, 3)
         render_out = rendering_apply(
             params.rendering, ren_cfg, points_flat, gradients, dirs_flat, feature_vectors,
             code_flat, dtype=main_dtype,
         )
+    if rgb_fused:
+        normals = render_out["normals"].reshape(R, S, 3)
+    else:
         grad_sq = torch.sum(gradients * gradients, dim=-1, keepdim=True)
         normals = gradients / (torch.sqrt(torch.clamp(grad_sq, min=1e-24)) + 1e-6)
         normals = normals.reshape(R, S, 3)
@@ -312,9 +318,10 @@ def _render_samples(params, cfg, rays, z_vals, image_code, eik_points, table) ->
         weights, z_vals, rgb, normals, rays["depth_scale"]
     )
     if cfg.white_bkgd:
-        acc_map = torch.sum(weights, dim=-1)
-        bg = torch.tensor(cfg.bg_color, dtype=rgb_values.dtype, device=rgb_values.device)
-        rgb_values = rgb_values + (1.0 - acc_map[..., None]) * bg[None]
+        # the background colour as Python floats: a tensor made from them on
+        # the card would be a host-to-device copy that waits for the stream
+        rest = 1.0 - torch.sum(weights, dim=-1)
+        rgb_values = rgb_values + torch.stack([rest * c for c in cfg.bg_color], dim=-1)
 
     # world normals into the camera frame
     rot = rays["pose"][:, :3, :3].transpose(1, 2)

@@ -17,7 +17,9 @@ def make_train_step(cfg: MonoSDFConfig, loss_cfg: LossConfig, optimizer: Optimiz
     metrics``.
 
     batch: {'rays': {rays_o, rays_d, depth_scale, pose}, 'gt': {rgb, depth,
-    normal, mask}} on the model's device. One step renders the batch in
+    normal, mask}} on the model's device, and with per-image codes
+    (``rendering.per_image_code``) 'indices' (R,), each ray's frame: the
+    ray's code is that row of ``rendering.embeddings``. One step renders the batch in
     training mode (``draws``/``generator``: the random draws, see
     ``render_rays``), takes ``monosdf_loss`` at the optimizer's step count,
     back-propagates, and steps Adam and its schedule. metrics: the loss
@@ -27,8 +29,11 @@ def make_train_step(cfg: MonoSDFConfig, loss_cfg: LossConfig, optimizer: Optimiz
 
     def train_step(model: MonoSDF, batch: dict, draws=None, generator=None) -> dict:
         adam.zero_grad(set_to_none=True)
-        out = render_rays(model, cfg, batch["rays"], training=True, draws=draws,
-                          generator=generator)
+        image_code = None
+        if cfg.rendering.per_image_code:
+            image_code = model.rendering.embeddings[batch["indices"]]
+        out = render_rays(model, cfg, batch["rays"], training=True, image_code=image_code,
+                          draws=draws, generator=generator)
         losses = monosdf_loss(loss_cfg, out, batch["gt"], step=schedule.last_epoch)
         losses["loss"].backward()
         adam.step()

@@ -6,8 +6,9 @@ nor the JAX package, so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Small widths (4x48 SDF MLP with a skip at 2, multires 4; 2x48 radiance
-MLP; a 6-level hash grid and a 2x48 grid trunk on its 71-wide input) and a
-few hundred points; the full-width shapes are chip_smoke.py's.
+MLP, with codes of 8 for K3, K8a and K8b; a 6-level hash grid and a 2x48
+grid trunk on its 71-wide input) and a few hundred points; the full-width
+shapes are chip_smoke.py's.
 """
 
 import numpy as np
@@ -162,8 +163,9 @@ def test_k3_backward_matches_plain(dev, dtype):
         sv = torch.cat([_rand(dev, 700, 3), positional_encoding(_rand(dev, 700, 3, seed=2), 4)], -1)
         feat = _rand(dev, 700, 32, seed=3)
         co, cn = _rand(dev, 700, 3, seed=8), _rand(dev, 700, 3, seed=9)
-        dws, dbs, dg, df = radiance_norm_bwd(rws, rbs, g, sv, feat, co, cn, dtype)
-        dws_p, dbs_p, dg_p, df_p = radiance_norm_bwd_plain(rws, rbs, g, sv, feat, co, cn, dtype)
+        dws, dbs, dg, df, _ = radiance_norm_bwd(rws, rbs, g, sv, feat, co, cn, dtype)
+        dws_p, dbs_p, dg_p, df_p, _ = radiance_norm_bwd_plain(rws, rbs, g, sv, feat, co, cn,
+                                                              dtype)
         _check_grads([*dws, *dbs, dg], [*dws_p, *dbs_p, dg_p], dtype)
         _check([df], [df_p], dtype)
 
@@ -353,3 +355,116 @@ def test_grid_autograd_functions_launch_their_kernels(dev):
     assert {k: build.launches[k] - before[k] for k in
             ("hash_encode", "hash_encode_bwd", "sdf_grad_grid", "sdf_grad_grid_bwd")} == {
         "hash_encode": 1, "hash_encode_bwd": 1, "sdf_grad_grid": 1, "sdf_grad_grid_bwd": 1}
+
+
+# -- the radiance kernels with codes: K3, K8a, K8b ------------------------------
+
+def _radiance_case(dev, code_dim=8, n=700):
+    """The rendering net with codes and its inputs: (ws, bs, normals or g,
+    sv, feat, code, co, cn)."""
+    cfg = RenderingNetConfig(feature_vector_size=32, dims=(48, 48), multires_view=4,
+                             per_image_code=True, code_dim=code_dim, max_images=4)
+    gen = torch.Generator().manual_seed(3)
+    ren = init_rendering_net(cfg, gen)
+    with torch.no_grad():
+        for p in ren.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    ws, bs = (list(t.detach() for t in ts) for ts in effective_linear_weights(ren.to(dev)))
+    g = _rand(dev, n, 3, seed=1)
+    g[:5] = 0.0
+    sv = torch.cat([_rand(dev, n, 3), positional_encoding(_rand(dev, n, 3, seed=2), 4)], -1)
+    return (ws, bs, g, sv, _rand(dev, n, 32, seed=3), _rand(dev, n, code_dim, seed=4),
+            _rand(dev, n, 3, seed=8), _rand(dev, n, 3, seed=9))
+
+
+def _clear_gated_rows(co, h0, ws, bs):
+    """co with the rows zeroed whose hidden pre-activations (float64) lie
+    within float32 rounding of 0 (|y| < 1e-5): there the ReLU gate of two
+    float32 implementations may differ, which changes that row's whole
+    backward. With a zero cotangent such a row adds nothing to any output,
+    whatever its gates."""
+    h = h0.double()
+    ambiguous = torch.zeros(h.shape[0], dtype=torch.bool, device=h.device)
+    for w, b in zip(ws[:-1], bs[:-1]):
+        y = h @ w.double() + b.double()
+        ambiguous |= (y.abs() < 1e-5).any(-1)
+        h = torch.relu(y)
+    return torch.where(ambiguous[:, None], torch.zeros_like(co), co)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_radiance_kernels_with_codes_match_plain(dev, dtype):
+    """K3 with the code operand, K8a and K8b (nerf's [view PE | features |
+    code]), forward and backward, against their plain versions; one launch
+    of each."""
+    from monosdf_torch.kernels import radiance_mlp as k8b
+    from monosdf_torch.kernels import radiance_split as k8a
+
+    from monosdf_torch.kernels.radiance_norm import normalize
+
+    ws, bs, g, sv, feat, code, co, cn = _radiance_case(dev)
+    before = dict(build.launches)
+    with torch.no_grad():
+        h0 = torch.cat([sv, normalize(g), feat, code], -1)
+        co = _clear_gated_rows(co, h0, ws, bs)
+        _check(radiance_norm(ws, bs, g, sv, feat, dtype, code),
+               radiance_norm_plain(ws, bs, g, sv, feat, dtype, code), dtype)
+        dws, dbs, dg, df, dc = radiance_norm_bwd(ws, bs, g, sv, feat, co, cn, dtype, code)
+        p = radiance_norm_bwd_plain(ws, bs, g, sv, feat, co, cn, dtype, code)
+        _check_grads([*dws, *dbs, dg, dc], [*p[0], *p[1], p[2], p[4]], dtype)
+        _check([df], [p[3]], dtype)
+        _check([k8a.radiance_split(ws, bs, g, sv, feat, code, dtype)],
+               [k8a.radiance_split_plain(ws, bs, g, sv, feat, code, dtype)], dtype)
+        co = _clear_gated_rows(co, torch.cat([sv, g, feat, code], -1), ws, bs)
+        dws, dbs, dn, df, dc = k8a.radiance_split_bwd(ws, bs, g, sv, feat, code, co, dtype)
+        p = k8a.radiance_split_bwd_plain(ws, bs, g, sv, feat, code, co, dtype)
+        _check_grads([*dws, *dbs, dn, dc], [*p[0], *p[1], p[2], p[4]], dtype)
+        _check([df], [p[3]], dtype)
+        # nerf mode's trunk: W0 rows [view PE | features | code]
+        h0 = torch.cat([sv[:, 3:], feat, code], -1)
+        nws = [_rand(dev, h0.shape[1], 48, seed=11) / 8.0, ws[1], ws[2]]
+        _check([k8b.mlp_with_input_grad(nws, bs, h0, dtype)],
+               [k8b.mlp_plain(nws, bs, h0, dtype)], dtype)
+        co = _clear_gated_rows(co, h0, nws, bs)
+        dws, dbs, dh0 = k8b.mlp_with_input_grad_bwd(nws, bs, h0, co, dtype)
+        p = k8b.mlp_bwd_plain(nws, bs, h0, co, dtype)
+        _check_grads([*dws, *dbs, dh0], [*p[0], *p[1], p[2]], dtype)
+        again = k8b.mlp_with_input_grad_bwd(nws, bs, h0, co, dtype)
+        assert all(torch.equal(a, b) for a, b in zip([*dws, *dbs, dh0],
+                                                     [*again[0], *again[1], again[2]]))
+    torch.cuda.synchronize()
+    assert {k: build.launches[k] - before[k] for k in before} == {
+        **dict.fromkeys(before, 0), "radiance_norm": 1, "radiance_norm_bwd": 1,
+        "radiance_split": 1, "radiance_split_bwd": 1, "radiance_mlp": 1, "radiance_mlp_bwd": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fused", "idr", "nerf"])
+def test_radiance_fields_with_codes_launch_their_kernels(dev, mode):
+    """Under grad, the radiance field functions with codes launch one
+    forward and one backward kernel each: rendering_apply_pallas_wide K3,
+    rendering_apply_pallas K8a (idr) or K8b (nerf); finite gradients for
+    the parameters, the features and the codes."""
+    from monosdf_torch.models.fields import rendering_apply_pallas, rendering_apply_pallas_wide
+
+    cfg = RenderingNetConfig(feature_vector_size=32, dims=(48, 48), multires_view=4,
+                             mode="nerf" if mode == "nerf" else "idr",
+                             d_in=3 if mode == "nerf" else 9, per_image_code=True, code_dim=8,
+                             max_images=4)
+    ren = init_rendering_net(cfg, torch.Generator().manual_seed(0), dev)
+    x, g, d = _rand(dev, 300, 3), _rand(dev, 300, 3, seed=1), _rand(dev, 300, 3, seed=2)
+    feat = _rand(dev, 300, 32, seed=3).to(torch.bfloat16).requires_grad_()
+    code = ren.embeddings[torch.arange(300, device=dev) % 4]
+    before = dict(build.launches)
+    fn = rendering_apply_pallas_wide if mode == "fused" else rendering_apply_pallas
+    out = fn(ren, cfg, x, g, d, feat, code, dtype=torch.bfloat16)
+    out["rgb"].sum().backward()
+    torch.cuda.synchronize()
+    for t in [*ren.parameters(), feat]:
+        assert t.grad is not None and torch.isfinite(t.grad.float()).all()
+    assert ren.embeddings.grad.abs().max() > 0
+    name = {"fused": "radiance_norm", "idr": "radiance_split", "nerf": "radiance_mlp"}[mode]
+    assert {k: build.launches[k] - before[k] for k in before} == {
+        **dict.fromkeys(before, 0), name: 1, f"{name}_bwd": 1}
+

@@ -17,7 +17,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, chip_smoke, monosdf_torch, monosdf_torch.cli.eval, monosdf_torch.cli.train\n"
         "import monosdf_torch.ops.hashgrid, monosdf_torch.kernels.hash_encode\n"
-        "import monosdf_torch.kernels.sdf_grad_grid\n"
+        "import monosdf_torch.kernels.sdf_grad_grid, monosdf_torch.kernels.radiance_split\n"
+        "import monosdf_torch.kernels.radiance_mlp\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'monosdf_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -45,4 +46,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
         ttrain.main(["--steps", "1", "--rays", "2"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.main(["--grids", "--steps", "1", "--rays", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrain.main(["--union", "--rgb_backend", "pallas", "--steps", "1", "--rays", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        teval.main(["--union", "--n_images", "1", "--img_res", "2"])
     assert next(init_monosdf(cfg, device="cpu").parameters()).device.type == "cpu"

@@ -554,8 +554,9 @@ def test_k3_backward_matches_pallas(dtype, atol, rtol):
     dws_j, dbs_j, dg_j, df_j, _ = jrgb._radiance_norm_bwd_pallas(
         jws, jbs, g128, jnp.asarray(sv), jnp.asarray(feat), None, jnp.asarray(co),
         jnp.asarray(np.pad(cn, ((0, 0), (0, 125)))), ds, JDT[dtype], 64, None)
-    dws_t, dbs_t, dg_t, df_t = radiance_norm_bwd(
+    dws_t, dbs_t, dg_t, df_t, dc_t = radiance_norm_bwd(
         tws, tbs, *(torch.from_numpy(a) for a in (g, sv, feat, co, cn)), TDT[dtype])
+    assert dc_t is None  # no code operand
     assert df_t.dtype == (TDT[dtype] or torch.float32)
     _grad_close(dws_t, dbs_t, dws_j, dbs_j, atol, rtol)
     for a, b in ((dg_t, np.asarray(dg_j)[:, :3]), (df_t, df_j)):

@@ -39,11 +39,12 @@ N_RAYS = 8
 
 
 def _batch(n=N_RAYS, seed=0):
+    """Rays, ground truth and each ray's frame (``indices``) of 2 frames."""
     from monosdf_tpu.data.synthetic import make_synthetic_sphere_scene, sample_ray_batch
 
     scene = make_synthetic_sphere_scene(n_images=2, img_res=8)
     b = sample_ray_batch(scene, np.random.default_rng(seed), n)
-    return {k: b[k] for k in ("rays", "gt")}
+    return {k: b[k] for k in ("rays", "gt", "indices")}
 
 
 def _to_jax(b):
@@ -51,8 +52,10 @@ def _to_jax(b):
 
 
 def _to_torch(b):
-    return {k: {kk: torch.from_numpy(np.ascontiguousarray(v)) for kk, v in b[k].items()}
-            for k in ("rays", "gt")}
+    out = {k: {kk: torch.from_numpy(np.ascontiguousarray(v)) for kk, v in b[k].items()}
+           for k in ("rays", "gt")}
+    out["indices"] = torch.from_numpy(b["indices"].astype(np.int64))
+    return out
 
 
 def _grads_np(model) -> dict:
@@ -64,9 +67,26 @@ def _flat_jax(tree) -> dict:
             flatten_tree(jax.tree_util.tree_map(np.asarray, tree)).items()}
 
 
+# the step test's cases: the kernel and plain backends, and the per-image
+# code model (codes of 8 for up to 4 frames, white background) with its radiance
+# through K3 ('fused', on the kernel backends, as the union model
+# cli/eval.py union_codes_config at this test's size) and through K8a
+# ('pallas', on the plain sampler and SDF path: K8a does not depend on K2)
+CASES = {
+    "pallas": dict(kernels=True),
+    "jnp": dict(kernels=False),
+    "codes-fused": dict(kernels=True, white_bkgd=True,
+                        rendering=dict(per_image_code=True, code_dim=8, max_images=4)),
+    "codes-pallas": dict(kernels=False, white_bkgd=True, rgb_backend="pallas",
+                         rendering=dict(per_image_code=True, code_dim=8, max_images=4)),
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _setup(kernels: bool):
-    jcfg, tcfg = configs(kernels, sampler=ITERS)
+def _setup(case: str):
+    """(JAX config, port config, JAX params, parameter tree) of a case of CASES."""
+    kw = dict(CASES[case])
+    jcfg, tcfg = configs(kw.pop("kernels"), sampler=ITERS, **kw)
     jparams, _, tree = both_models(jcfg, tcfg)
     return jcfg, tcfg, jparams, tree
 
@@ -85,7 +105,7 @@ def _model(tcfg, tree):
 # rounding of the cdf) / pdf where the pdf is ~add_tiny
 # (tests/test_torch_render.py); z_eik is one of them.
 def test_sampler_training_mode_with_jax_draws():
-    jcfg, tcfg, jparams, tree = _setup(False)
+    jcfg, tcfg, jparams, tree = _setup("jnp")
     model = _model(tcfg, tree)
     rays = ray_batch(N_RAYS, seed=1)
     key = jax.random.PRNGKey(3)
@@ -111,7 +131,7 @@ def test_sampler_training_mode_with_jax_draws():
 
 
 def test_training_draws_come_from_the_generator_when_not_given():
-    _, tcfg, _, _ = _setup(True)
+    _, tcfg, _, _ = _setup("pallas")
     g1, g2 = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
     a = ts.training_draws(4, tcfg.sampler, generator=g1)
     b = ts.training_draws(4, tcfg.sampler, {"u_final": a["u_final"] + 1}, generator=g2)
@@ -203,16 +223,16 @@ def test_adam_and_lr_schedule_match_optax_over_three_steps():
 # -- the training step ------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _jax_train_step(kernels: bool):
+def _jax_train_step(case: str):
     """JAX make_train_step of the config, jitted once for the tests that use it."""
-    jcfg = _setup(kernels)[0]
+    jcfg = _setup(case)[0]
     jopt = jt.make_optimizer(jt.OptimConfig())
     return jopt, jax.jit(jt.make_train_step(jcfg, jl.LossConfig(), jopt))
 
 
-def _jax_steps(kernels, jparams, batches, keys):
+def _jax_steps(case, jparams, batches, keys):
     """The JAX training state after one step per batch, and each step's metrics."""
-    jopt, step = _jax_train_step(kernels)
+    jopt, step = _jax_train_step(case)
     state = jt.init_train_state(jparams, jopt)
     metrics = []
     for b, k in zip(batches, keys):
@@ -222,13 +242,17 @@ def _jax_steps(kernels, jparams, batches, keys):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_value_and_grad(kernels: bool):
+def _jax_value_and_grad(case):
     """make_train_step's loss_fn (monosdf_tpu/train/step.py:42-53) under
     jax.value_and_grad, jitted once."""
-    jcfg = _setup(kernels)[0]
+    jcfg = _setup(case)[0]
 
     def loss_fn(params, batch, key):
-        out = jm.render_rays(params, jcfg, batch["rays"], key, training=True)
+        image_code = None
+        if jcfg.rendering.per_image_code:
+            image_code = params["rendering"]["embeddings"][batch["indices"]]
+        out = jm.render_rays(params, jcfg, batch["rays"], key, training=True,
+                             image_code=image_code)
         losses = jl.monosdf_loss(jl.LossConfig(), out, batch["gt"], 0)
         mse = jnp.mean((out["rgb_values"] - batch["gt"]["rgb"]) ** 2)
         losses["psnr"] = -10.0 * jnp.log(mse) / jnp.log(10.0)
@@ -244,12 +268,14 @@ def _jax_value_and_grad(kernels: bool):
 # parameters after one Adam step, within 1% of its lr 5e-4 (the first Adam
 # step moves a parameter by lr g / (|g| + 1e-8): gradients that agree to
 # float32 rounding give the same move unless |g| is near 1e-8).
-@pytest.mark.parametrize("kernels", [True, False], ids=["pallas", "jnp"])
-def test_training_step_matches_jax(kernels):
-    jcfg, tcfg, jparams, tree = _setup(kernels)
+# The code cases also hold the gradient of every embeddings row (only the
+# batch's frames' rows are nonzero) and the white background.
+@pytest.mark.parametrize("case", list(CASES))
+def test_training_step_matches_jax(case):
+    jcfg, tcfg, jparams, tree = _setup(case)
     batch = _batch(seed=2)
     key = jax.random.PRNGKey(7)
-    (_, mj), gj = _jax_value_and_grad(kernels)(jparams, _to_jax(batch), key)
+    (_, mj), gj = _jax_value_and_grad(case)(jparams, _to_jax(batch), key)
     jopt = jt.make_optimizer(jt.OptimConfig())
     upd, _ = jopt.update(gj, jopt.init(jparams), jparams)
     pj = _flat_jax(jax.tree_util.tree_map(lambda a, u: a + u, jparams, upd))
@@ -257,11 +283,15 @@ def test_training_step_matches_jax(kernels):
     draws = torch_draws(jax_draws(key, N_RAYS, jcfg))
     tb = _to_torch(batch)
     model = _model(tcfg, tree)
-    out = tm.render_rays(model, tcfg, tb["rays"], training=True, draws=draws)
+    code = model.rendering.embeddings[tb["indices"]] if tcfg.rendering.per_image_code else None
+    out = tm.render_rays(model, tcfg, tb["rays"], training=True, image_code=code, draws=draws)
     assert out["grad_theta"].shape == out["grad_theta_nei"].shape == (2 * N_RAYS, 3)
     tl.monosdf_loss(tl.LossConfig(), out, tb["gt"], 0)["loss"].backward()
     grads, gjf = _grads_np(model), _flat_jax(gj)
     assert grads.keys() == gjf.keys()
+    if tcfg.rendering.per_image_code:
+        seen = np.unique(batch["indices"])
+        assert len(seen) > 1 and np.abs(grads["rendering.embeddings"][seen]).max() > 0
     for k in grads:
         np.testing.assert_allclose(grads[k], gjf[k], atol=5e-4, rtol=2e-3, err_msg=k)
 
@@ -282,10 +312,10 @@ def test_three_step_loss_trajectory_matches_jax():
     batches and draws, kernel backends: the losses follow JAX's at 1e-4
     (each step starts from parameters that agree to float32 rounding of the
     update), and so do the parameters after them."""
-    jcfg, tcfg, jparams, tree = _setup(True)
+    jcfg, tcfg, jparams, tree = _setup("pallas")
     batches = [_batch(seed=10 + i) for i in range(3)]
     keys = [jax.random.PRNGKey(20 + i) for i in range(3)]
-    state, mj = _jax_steps(True, jparams, batches, keys)
+    state, mj = _jax_steps("pallas", jparams, batches, keys)
     model = _model(tcfg, tree)
     step = make_train_step(tcfg, tl.LossConfig(), make_optimizer(OptimConfig(),
                                                                   model.named_parameters()))

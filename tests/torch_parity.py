@@ -50,15 +50,16 @@ def model_kwargs(kernels: bool, dtype: str = "float32", sampler=None, **override
     return kw
 
 
-def configs(kernels: bool, dtype: str = "float32", sampler=None, **overrides):
+def configs(kernels: bool, dtype: str = "float32", sampler=None, rendering=None, **overrides):
     """(JAX MonoSDFConfig, port MonoSDFConfig) with the same fields;
-    ``sampler`` overrides SamplerConfig fields."""
+    ``sampler`` and ``rendering`` override SamplerConfig and
+    RenderingNetConfig fields."""
     kw = model_kwargs(kernels, dtype, sampler, **overrides)
 
     def build(fields, sampler, monosdf, hashgrid):
         return monosdf.MonoSDFConfig(
             implicit=fields.ImplicitNetConfig(**IMPLICIT),
-            rendering=fields.RenderingNetConfig(**RENDERING),
+            rendering=fields.RenderingNetConfig(**{**RENDERING, **(rendering or {})}),
             sampler=sampler.SamplerConfig(**kw["sampler"]),
             **{k: v for k, v in kw.items() if k != "sampler"},
         )
