@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (monosdf_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
-    python3 chip_smoke.py --kernels  # build and check the kernels only
+    python3 chip_smoke.py --kernels  # build and check the kernels only (probes included)
 
 Three models: the bench's ScanNet-MLP model (bench.py), its hash-grid
 model (bench.py --grids) and the appearance-code model of
@@ -9,7 +9,7 @@ confs/synth_union_quality.conf (cli/eval.py union_codes_config: per-image
 codes, white background, sphere sampler), the last with its radiance
 through K3 and through K8a. Phases (any failure exits non-zero):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the fourteen kernels from monosdf_torch/csrc with nvcc for sm_90a,
+2. build the nineteen kernels from monosdf_torch/csrc with nvcc for sm_90a,
    one nvcc per source, all at once;
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, and time kernel and plain version (CUDA events):
@@ -54,11 +54,18 @@ through K3 and through K8a. Phases (any failure exits non-zero):
    codes (K8b on [view PE | features | code], 315 wide) at 100,352 samples,
    forward and backward through autograd, against rendering_apply, in
    float32 and bf16 (K8b and its backward once each);
-10. print a ``render``, a ``train``, a ``render_grids``, a ``train_grids``,
+10. the probes (monosdf_torch/scripts/probe_hash_primitives.py, the port
+   of scripts/probe_hash_primitives.py): its wave functions at full size,
+   launches counted from 0, on one case of each Pallas site (PROBE_CASES:
+   G, S, R, M, C, each launched 6 times per case), then each kept output
+   against its kernel's plain version on the same inputs, and each kernel
+   again on seeded random inputs of the same shapes (the probe's own values
+   are constant); times, rates, bounds and library calls;
+11. print a ``render``, a ``train``, a ``render_grids``, a ``train_grids``,
    a ``render_codes``, a ``train_codes``, a ``render_codes_split``, a
-   ``train_codes_split`` and a ``nerf_radiance`` JSON line, the ``kernels``
-   JSON line, the card line (nvidia-smi's name and power limit), and last
-   the result line.
+   ``train_codes_split``, a ``nerf_radiance`` and a ``probes`` JSON line,
+   the ``kernels`` JSON line, the card line (nvidia-smi's name and power
+   limit), and last the result line.
 """
 
 from __future__ import annotations
@@ -96,6 +103,17 @@ TPU_KERNELS = {
     "radiance_mlp": "monosdf_tpu/ops/pallas_rgb_grad.py:122",
     "radiance_mlp_bwd": "monosdf_tpu/ops/pallas_rgb_grad.py:225",
 }
+# the probes' kernels and the Pallas sites of scripts/probe_hash_primitives.py
+# each replaces (the first stands in the kernels line's "replaces")
+PROBE_SITES = {
+    "probe_gather": ["scripts/probe_hash_primitives.py:154", "scripts/probe_hash_primitives.py:998"],
+    "probe_scatter_rows": ["scripts/probe_hash_primitives.py:192",
+                           "scripts/probe_hash_primitives.py:534"],
+    "probe_row_copy": ["scripts/probe_hash_primitives.py:901"],
+    "probe_strided_permute": ["scripts/probe_hash_primitives.py:936"],
+    "probe_capacity": ["scripts/probe_hash_primitives.py:495", "scripts/probe_hash_primitives.py:853"],
+}
+TPU_KERNELS.update({name: sites[0] for name, sites in PROBE_SITES.items()})
 _NONE = dict.fromkeys(TPU_KERNELS, 0)
 PER_CHUNK = {**_NONE, "sdf_mlp": 5, "sampler_machinery": 5, "sdf_grad": 1, "radiance_norm": 1}
 PER_STEP = {**PER_CHUNK, "sdf_grad_bwd": 1, "radiance_norm_bwd": 1}
@@ -1132,7 +1150,7 @@ def _profile(fn, reps: int, what: str) -> dict:
         fail(f"torch.profiler recorded no device time ({what})")
     # reduce_partials: the second launch of both backward kernels (their
     # blocks' dW partials summed), counted on its own
-    names = [f"{n}_kernel" for n in build.SOURCES] + ["reduce_partials"]
+    names = [f"{n}_kernel" for n in build.SOURCES if n not in PROBE_SITES] + ["reduce_partials"]
     kern = {n.removesuffix("_kernel"): sum(v for k, v in per_name.items() if n in k)
             for n in names}
     other: dict = {}  # by the first 60 characters of the kernel's name
@@ -1245,6 +1263,206 @@ def nerf_phase(dev):
     return info
 
 
+# the probes' main path: one case of each Pallas site of
+# scripts/probe_hash_primitives.py at its full size -> (kernel, wave)
+PROBE_CASES = {
+    "pl_dyngather_ax0_8x128": ("probe_gather", 1),            # P1, axis 0, staged in shared memory
+    "pl_dyngather_ax0_8192x128": ("probe_gather", 1),         # P1, axis 0, through L2
+    "pl_dyngather_ax1_512x128": ("probe_gather", 1),          # P1, axis 1
+    "pl_dynslice_store_512x8rows": ("probe_scatter_rows", 1),  # P2
+    "smem_alloc_227KB": ("probe_capacity", 4),                 # P3 (P5: the same kernel)
+    "pl_rmw_100k_64krows_f32": ("probe_scatter_rows", 4),      # P4
+    "pl_rmw_100k_conflict": ("probe_scatter_rows", 4),         # P4, every index 0
+    "perrow_dma_64k": ("probe_row_copy", 7),                   # P6, one CTA
+    "perrow_dma_64k_per_sm": ("probe_row_copy", 7),            # P6, one CTA per SM
+    "strided_permute_kernel": ("probe_strided_permute", 7),    # P7
+    "dg_32768r_2048n_bfloat16": ("probe_gather", 8),           # P8
+}
+# the case whose numbers stand in the kernels line
+PROBE_PRIMARY = {"probe_gather": "pl_dyngather_ax0_8192x128",
+                 "probe_scatter_rows": "pl_rmw_100k_64krows_f32",
+                 "probe_row_copy": "perrow_dma_64k",
+                 "probe_strided_permute": "strided_permute_kernel",
+                 "probe_capacity": "smem_alloc_227KB"}
+# S and R against their plain versions, entry by entry: |a - b| <= 1e-5 *
+# (the sum of the magnitudes of the terms added into the entry): float32
+# sums of the same terms in another order (the atomics' order changes from
+# run to run); G, M (0/1 permutation) and C exactly
+PROBE_SUM_RTOL = 1e-5
+
+
+def _probe_fns():
+    from monosdf_torch.kernels import probes
+
+    return {"probe_gather": (probes.gather, probes.gather_plain),
+            "probe_scatter_rows": (probes.scatter_rows, probes.scatter_rows_plain),
+            "probe_row_copy": (probes.row_copy_sum, probes.row_copy_sum_plain),
+            "probe_strided_permute": (probes.strided_permute, probes.strided_permute_plain),
+            "probe_capacity": (probes.capacity, probes.capacity_plain)}
+
+
+def _probe_err(kernel: str, inputs: dict, out, ref):
+    """(max abs err, err / tolerance) of a probe kernel's output against its
+    plain version's."""
+    from monosdf_torch.kernels import probes
+
+    if not torch.isfinite(out).all() or out.shape != ref.shape:
+        fail(f"{kernel}: output of shape {tuple(out.shape)} not finite or not {tuple(ref.shape)}")
+    err = (out - ref).abs()
+    if kernel == "probe_scatter_rows":
+        mag = probes.scatter_rows_plain(inputs["offs"], inputs["vals"].abs(), inputs["rows"],
+                                        inputs["run"])
+        ratio = float((err / (PROBE_SUM_RTOL * mag).clamp_min(1e-30)).max())
+    elif kernel == "probe_row_copy":
+        mag = inputs["tab"][inputs["idx"].long(), 0].abs().sum()
+        ratio = float(err.max() / (PROBE_SUM_RTOL * mag).clamp_min(1e-30))
+    else:
+        ratio = 0.0 if torch.equal(out, ref) else math.inf
+    return float(err.max()), ratio
+
+
+def _random_like(kernel: str, inputs: dict, gen):
+    """The case's inputs with seeded random values in place of the probe's
+    constant ones (tables, values, x), indices in range."""
+    def randn(t):
+        return torch.randn(t.shape, generator=gen, device=t.device).to(t.dtype)
+
+    new = dict(inputs)
+    if kernel == "probe_gather":
+        tbl, idx = inputs["tbl"], inputs["idx"]
+        hi = tbl.shape[0] if inputs["axis"] == 0 else 128
+        new.update(tbl=randn(tbl), idx=torch.randint(0, hi, idx.shape, generator=gen,
+                                                      device=idx.device, dtype=torch.int32))
+    elif kernel == "probe_scatter_rows":
+        new["vals"] = randn(inputs["vals"])
+    elif kernel == "probe_row_copy":
+        new["tab"] = randn(inputs["tab"])
+    elif kernel == "probe_strided_permute":
+        new["x"] = randn(inputs["x"])
+    return new
+
+
+def _probe_bound(kernel: str, inputs: dict, out):
+    """(bound_ms, by) of one launch on this run's inputs: each input read
+    once, each output written once (G: the table's 32-byte sectors its
+    indices reach; R: the index and the sectors that hold the rows' first
+    values), and float32 operations at 67 TFLOP/s."""
+    if kernel == "probe_gather":
+        idx, es = inputs["idx"], inputs["tbl"].element_size()
+        wide = idx.long()  # for the sector ids; the kernel reads the int32 index
+        lanes = torch.arange(128, device=idx.device)
+        flat = wide * 128 + lanes if inputs["axis"] == 0 else \
+            torch.arange(idx.shape[0], device=idx.device)[:, None] * 128 + wide
+        sectors = int(torch.unique(flat * es // 32).numel())
+        return bound_ms(idx.numel() * inputs["reps"], sectors * 32 + nbytes(idx, out),
+                        H100_F32_FLOPS)
+    if kernel == "probe_scatter_rows":
+        return bound_ms(inputs["vals"].numel(), nbytes(inputs["offs"], inputs["vals"], out),
+                        H100_F32_FLOPS)
+    if kernel == "probe_row_copy":
+        rows = int(torch.unique(inputs["idx"]).numel())
+        return bound_ms(inputs["idx"].numel(), nbytes(inputs["idx"], out) + rows * 32,
+                        H100_F32_FLOPS)
+    if kernel == "probe_strided_permute":
+        n = inputs["n_out"]
+        return bound_ms(2.0 * 9 * n * 128 * 128, (8 * n + 1) * 512 + nbytes(inputs["P"], out),
+                        H100_F32_FLOPS)
+    return bound_ms(0.0, nbytes(out), H100_F32_FLOPS)
+
+
+def _probe_library(kernel: str, inputs: dict):
+    """The one PyTorch call that computes the case's function (G: one of its
+    reps' gathers; R: the row pick and its sum; M: one einsum over the
+    windows x.unfold(0, 9, 8), window r holding rows 8r..8r+8)."""
+    from monosdf_torch.kernels import probes
+
+    if kernel == "probe_gather":
+        tbl, idx, axis = inputs["tbl"], inputs["idx"].long(), inputs["axis"]
+        return lambda: torch.gather(tbl, axis, idx)
+    if kernel == "probe_scatter_rows":
+        rows = probes.run_rows(inputs["offs"], inputs["run"])
+        vals = inputs["vals"].float()
+        acc = torch.zeros(inputs["rows"], 128, dtype=torch.float32, device=vals.device)
+        return lambda: acc.index_add_(0, rows, vals)
+    if kernel == "probe_row_copy":
+        tab, idx = inputs["tab"], inputs["idx"].long()
+        return lambda: tab[idx, 0].sum()
+    if kernel == "probe_capacity":
+        return lambda: torch.zeros(inputs["rows"], 128, dtype=torch.float32,
+                                   device=inputs["device"])
+    x, P, n = inputs["x"], inputs["P"], inputs["n_out"]
+    return lambda: torch.einsum("rkb,kl->rl", x.unfold(0, 9, 8)[:n], P)
+
+
+def probes_phase(dev, results):
+    """Phase 10: the probe waves (monosdf_torch/scripts/probe_hash_primitives.py)
+    at full size on PROBE_CASES, launches counted from 0 and checked exactly
+    (LAUNCHES_PER_CASE per case), each kept output against its plain
+    version, each kernel again on random inputs of the case's shapes; per
+    case ms (per launch), the probe's rate, bound, plain and library times.
+    Fills results[kernel] for the kernels line; returns the probes line."""
+    from monosdf_torch.kernels import build, probes
+    from monosdf_torch.scripts import probe_hash_primitives as probe
+
+    waves = sorted({w for _, w in PROBE_CASES.values()})
+    keep = {}
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    for w in waves:  # the main path: the probe's own entry points
+        only = tuple(c for c, (_, wave) in PROBE_CASES.items() if wave == w)
+        probe.WAVES[w](dev, only=only, keep=keep)
+    torch.cuda.synchronize()
+    counts = dict(build.launches)
+    expect = dict.fromkeys(counts, 0)
+    for kernel, _ in PROBE_CASES.values():
+        expect[kernel] += probe.LAUNCHES_PER_CASE
+    print(f"probes: launches {({k: v for k, v in counts.items() if v})} (expected "
+          f"{({k: v for k, v in expect.items() if v})})", flush=True)
+    if counts != expect:
+        fail(f"probes launch counts {counts} != {expect}")
+    if set(keep) != set(PROBE_CASES):
+        fail(f"probes: kept cases {sorted(keep)} != {sorted(PROBE_CASES)}")
+
+    fns, gen, ok = _probe_fns(), torch.Generator(device=dev).manual_seed(SEED + 7), True
+    cases = {}
+    for case, (kernel, wave) in PROBE_CASES.items():
+        wrap, plain = fns[kernel]
+        k = keep[case]
+        inputs = k["inputs"]
+        err, ratio = _probe_err(kernel, inputs, k["out"], plain(**inputs))
+        rnd = _random_like(kernel, inputs, gen)
+        err_r, ratio_r = _probe_err(kernel, rnd, wrap(**rnd), plain(**rnd))
+        torch.cuda.synchronize()
+        good = max(ratio, ratio_r) <= 1.0
+        ok = ok and good
+        print(f"check {case:27s} ({kernel}) max_abs_err {err:.3e} / random inputs {err_r:.3e}; "
+              f"worst err / tolerance {max(ratio, ratio_r):.3e} {'ok' if good else 'FAIL'}",
+              flush=True)
+        b, by = _probe_bound(kernel, inputs, k["out"])
+        cases[case] = {
+            "kernel": kernel, "wave": wave,
+            **{kk: k[kk] for kk in ("ms", "ms_per_rep", "rate", "rate_unit")},
+            "bound_ms": b, "bound_by": by,
+            "plain_ms": cuda_ms(lambda: plain(**inputs), reps=3, warmup=1),
+            "library_ms": cuda_ms(_probe_library(kernel, inputs), reps=5),
+            "max_abs_err": max(err, err_r), "err_over_tolerance": max(ratio, ratio_r)}
+    lim = probes.device_limits(dev)
+    print(f"probe cases (ms per launch): {json.dumps({c: {kk: v[kk] for kk in ('ms', 'bound_ms', 'plain_ms', 'library_ms')} for c, v in cases.items()})}",
+          flush=True)
+    for kernel, case in PROBE_PRIMARY.items():
+        c = cases[case]
+        results[kernel] = {
+            "case": case, "replaces_sites": PROBE_SITES[kernel],
+            "max_abs_err": max(v["max_abs_err"] for v in cases.values() if v["kernel"] == kernel),
+            **{kk: c[kk] for kk in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "cases": [n for n, v in cases.items() if v["kernel"] == kernel]}
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("a probe kernel disagrees with its plain version beyond the stated tolerance")
+    return {"launches": counts, "launches_per_case": probe.LAUNCHES_PER_CASE,
+            "device_limits": lim, "cases": cases}
+
+
 def main(argv):
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -1277,6 +1495,7 @@ def main(argv):
     grid_kernel_checks(dev, results)
     radiance_kernel_checks(dev, results)
     if "--kernels" in argv:
+        probes_phase(dev, results)
         print(json.dumps(results))
         return
     # the main paths, each render and each set of timed steps counted from 0
@@ -1292,12 +1511,14 @@ def main(argv):
         del runs, train_run
         torch.cuda.empty_cache()
     lines["nerf_radiance"] = nerf_phase(dev)
+    lines["probes"] = probes_phase(dev, results)
 
     kernels = []
     for name in build.SOURCES:
         r = results[name]
         # the main paths' runs, each counted from 0: the bf16 renders (16
-        # chunks each), the timed training steps of every model, the nerf check
+        # chunks each), the timed training steps of every model, the nerf
+        # check, the probes
         runs_n = {f"launches_{tag}": line["launches"][name] for tag, line in lines.items()}
         per = {}
         for which, (suffix, per_chunk, per_step) in PATHS.items():

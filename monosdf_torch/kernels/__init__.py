@@ -9,7 +9,9 @@ backward ``radiance_split_bwd``) and K8b ``radiance_mlp`` (nerf mode, and
 ``radiance_mlp_bwd``); for the hash-grid model K6
 ``hash_encode`` (the encode), K5 ``hash_encode_bwd`` (its table gradient)
 and K7 ``sdf_grad_grid`` (the grid trunk, K7f, and its backward K7b,
-``sdf_grad_grid_bwd``). Each wrapper runs its plain PyTorch
+``sdf_grad_grid_bwd``); and the five probe kernels of
+``scripts/probe_hash_primitives.py``'s port (``probes``: G, S, R, M, C).
+Each wrapper runs its plain PyTorch
 version on a CPU tensor and launches its CUDA kernel on a CUDA tensor; see
 ``build``.
 """

@@ -29,7 +29,8 @@ BUILD_DIR = PKG / "_build"
 SOURCES = ("sdf_mlp", "sampler_machinery", "sdf_grad", "radiance_norm", "sdf_grad_bwd",
            "radiance_norm_bwd", "hash_encode", "hash_encode_bwd", "sdf_grad_grid",
            "sdf_grad_grid_bwd", "radiance_split", "radiance_split_bwd", "radiance_mlp",
-           "radiance_mlp_bwd")
+           "radiance_mlp_bwd", "probe_gather", "probe_scatter_rows", "probe_row_copy",
+           "probe_strided_permute", "probe_capacity")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

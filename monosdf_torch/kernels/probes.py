@@ -1,0 +1,243 @@
+"""G, S, R, M and C: the kernels of the hash-grid primitive probes.
+
+``scripts/probe_hash_primitives.py`` measured the TPU's gather, scatter,
+DMA and on-chip-capacity rates with eight Pallas kernels; the port's probe
+(``monosdf_torch/scripts/probe_hash_primitives.py``) measures the card's
+with these five:
+
+- **G** (``gather``, ``csrc/probe_gather.cu``; :154 and :998): ``reps``
+  dynamic gathers along axis 0 or 1 of a (rows, 128) float32 or bf16
+  table, summed in float32; the table staged in shared memory where it fits
+  one block's, else read through L2.
+- **S** (``scatter_rows``, ``csrc/probe_scatter_rows.cu``; :192 and :534):
+  runs of R rows added at their row offsets into a zeroed (rows, 128)
+  float32 accumulator, float4 atomics.
+- **R** (``row_copy_sum``, ``csrc/probe_row_copy.cu``; :901): the sum of
+  ``tab[idx_i, 0]``, each 512-byte row copied into shared memory by its own
+  bulk copy, a ring of 8 per CTA.
+- **M** (``strided_permute``, ``csrc/probe_strided_permute.cu``; :936): the
+  sum over beta of ``x[beta::8][:n] @ P``, the product in the kernel.
+- **C** (``capacity``, ``csrc/probe_capacity.cu``; :495 and :853): a
+  (rows, 128) output held whole in one CTA's shared memory, zeros with
+  ``[0, 0] = 1``; a size above the card's per-block maximum is refused.
+
+Each wrapper runs the plain version (``*_plain``) for a CPU tensor and
+launches its kernel for a CUDA tensor, counting the launch in
+``build.launches``; a refused launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+GATHER = "probe_gather"
+SCATTER = "probe_scatter_rows"
+ROW_COPY = "probe_row_copy"
+PERMUTE = "probe_strided_permute"
+CAPACITY = "probe_capacity"
+LANES = 128
+_c = ctypes.c_void_p
+_i = ctypes.c_int
+
+
+def _lib(name: str, fn: str, argtypes):
+    lib = build.load(name)
+    f = getattr(lib, fn)
+    f.restype, f.argtypes = ctypes.c_int, argtypes
+    return lib, f
+
+
+# -- G ----------------------------------------------------------------------
+
+
+def gather_plain(tbl, idx, axis: int = 0, reps: int = 1):
+    """G's function in plain PyTorch: ``reps`` float32 adds of
+    take_along_axis(tbl, idx, axis), in order."""
+    g = torch.take_along_dim(tbl, idx.long(), dim=axis).float()
+    acc = torch.zeros_like(g)
+    for _ in range(reps):
+        acc = acc + g
+    return acc
+
+
+def gather(tbl, idx, axis: int = 0, reps: int = 1, where: list | None = None):
+    """(n, 128) float32: ``reps`` gathers of tbl (rows, 128) float32 or
+    bf16 at idx (n, 128) int32 along ``axis`` (axis 1: n == rows), summed.
+    On the card ``where``, if given, gets "shared" or "l2": where the
+    kernel read the table."""
+    if tbl.device.type == "cpu":
+        return gather_plain(tbl, idx, axis, reps)
+    dev, rows, n = tbl.device, tbl.shape[0], idx.shape[0]
+    if tbl.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"tbl: dtype {tbl.dtype}, expected float32 or bfloat16")
+    if axis not in (0, 1) or (axis == 1 and n != rows):
+        raise ValueError(f"axis {axis} with {n} index rows for {rows} table rows")
+    build.require(tbl, "tbl", tbl.dtype, (rows, LANES), dev)
+    build.require(idx, "idx", torch.int32, (n, LANES), dev)
+    out = torch.empty(n, LANES, dtype=torch.float32, device=dev)
+    staged = ctypes.c_int(0)
+    lib, f = _lib(GATHER, "probe_gather_launch", [_c, _c, _i, _i, _i, _i, _i, _c,
+                                                   ctypes.POINTER(ctypes.c_int), _c])
+    err = f(build.ptr(tbl), build.ptr(idx), rows, n, axis, reps, int(tbl.dtype == torch.bfloat16),
+            build.ptr(out), ctypes.byref(staged), build.stream_ptr(dev))
+    build.check(lib, GATHER, err)
+    build.launches[GATHER] += 1
+    if where is not None:
+        where.append("shared" if staged.value else "l2")
+    return out
+
+
+# -- S ----------------------------------------------------------------------
+
+
+def run_rows(offs, run: int):
+    """The accumulator row of every value row: offs[j] + k, k < run."""
+    return (offs.long()[:, None] + torch.arange(run, device=offs.device)).reshape(-1)
+
+
+def scatter_rows_plain(offs, vals, rows: int, run: int = 1):
+    """S's function in plain PyTorch: value rows added in order."""
+    out = torch.zeros(rows, LANES, dtype=torch.float32, device=vals.device)
+    return out.index_add_(0, run_rows(offs, run), vals.float())
+
+
+def scatter_rows(offs, vals, rows: int, run: int = 1):
+    """(rows, 128) float32: zeros, then vals[run j + k] (float32 or bf16,
+    widened) added into row offs[j] + k for every run j and k < run;
+    offs (n_runs,) int32 in [0, rows - run], vals (run n_runs, 128)."""
+    if vals.device.type == "cpu":
+        return scatter_rows_plain(offs, vals, rows, run)
+    dev, n = vals.device, offs.shape[0]
+    if vals.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"vals: dtype {vals.dtype}, expected float32 or bfloat16")
+    if run < 1 or rows < run:
+        raise ValueError(f"run {run} for {rows} rows")
+    build.require(offs, "offs", torch.int32, (n,), dev)
+    build.require(vals, "vals", vals.dtype, (run * n, LANES), dev)
+    out = torch.empty(rows, LANES, dtype=torch.float32, device=dev)
+    lib, f = _lib(SCATTER, "probe_scatter_rows_launch", [_c, _c, _i, _i, _i, _i, _c, _c])
+    err = f(build.ptr(offs), build.ptr(vals), n, run, rows, int(vals.dtype == torch.bfloat16),
+            build.ptr(out), build.stream_ptr(dev))
+    build.check(lib, SCATTER, err)
+    build.launches[SCATTER] += 1
+    return out
+
+
+# -- R ----------------------------------------------------------------------
+
+
+def row_copy_sum_plain(tab, idx, ctas: int = 1):
+    """R's function in plain PyTorch: the sum of tab[idx_i, 0] (float32)."""
+    return tab[idx.long(), 0].sum().reshape(1, 1)
+
+
+def row_copy_sum(tab, idx, ctas: int = 1):
+    """(1, 1) float32: sum_i tab[idx_i, 0], tab (rows, 128) float32, idx (n,)
+    int32; on the card each row copied whole by its own bulk copy, ``ctas``
+    CTAs each over a contiguous slice of idx, their partials added in
+    order."""
+    if tab.device.type == "cpu":
+        return row_copy_sum_plain(tab, idx, ctas)
+    dev, rows, n = tab.device, tab.shape[0], idx.shape[0]
+    build.require(tab, "tab", torch.float32, (rows, LANES), dev)
+    build.require(idx, "idx", torch.int32, (n,), dev)
+    if not 1 <= ctas <= max(n, 1):
+        raise ValueError(f"ctas {ctas} for {n} rows")
+    partials = torch.empty(ctas, dtype=torch.float32, device=dev)
+    out = torch.empty(1, 1, dtype=torch.float32, device=dev)
+    lib, f = _lib(ROW_COPY, "probe_row_copy_launch", [_c, _i, _c, _i, _i, _c, _c, _c])
+    err = f(build.ptr(tab), rows, build.ptr(idx), n, ctas, build.ptr(partials), build.ptr(out),
+            build.stream_ptr(dev))
+    build.check(lib, ROW_COPY, err)
+    build.launches[ROW_COPY] += 1
+    return out
+
+
+# -- M ----------------------------------------------------------------------
+
+
+def lane_permutation(step: int = 37, device=None):
+    """The probe's 0/1 (128, 128) matrix: P[(l * step) % 128, l] = 1."""
+    P = torch.zeros(LANES, LANES, dtype=torch.float32, device=device)
+    lanes = torch.arange(LANES, device=device)
+    P[(lanes * step) % LANES, lanes] = 1.0
+    return P
+
+
+def strided_permute_plain(x, P, n_out: int = 1024):
+    """M's function in plain PyTorch: sum_{beta < 9} x[beta::8][:n_out] @ P
+    in beta order."""
+    acc = torch.zeros(n_out, LANES, dtype=torch.float32, device=x.device)
+    for beta in range(9):
+        acc = acc + x[beta::8][:n_out] @ P
+    return acc
+
+
+def strided_permute(x, P, n_out: int = 1024):
+    """(n_out, 128) float32: sum_{beta < 9} x[beta::8][:n_out] @ P, x
+    (>= 8 n_out + 1, 128) and P (128, 128) float32; on the card the product
+    runs in the kernel."""
+    if x.device.type == "cpu":
+        return strided_permute_plain(x, P, n_out)
+    dev = x.device
+    if x.shape[0] < 8 * n_out + 1:
+        raise ValueError(f"x has {x.shape[0]} rows; {n_out} outputs read {8 * n_out + 1}")
+    build.require(x, "x", torch.float32, (x.shape[0], LANES), dev)
+    build.require(P, "P", torch.float32, (LANES, LANES), dev)
+    out = torch.empty(n_out, LANES, dtype=torch.float32, device=dev)
+    lib, f = _lib(PERMUTE, "probe_strided_permute_launch", [_c, _c, _i, _c, _c])
+    err = f(build.ptr(x), build.ptr(P), n_out, build.ptr(out), build.stream_ptr(dev))
+    build.check(lib, PERMUTE, err)
+    build.launches[PERMUTE] += 1
+    return out
+
+
+# -- C ----------------------------------------------------------------------
+
+
+class Refused(RuntimeError):
+    """The card refused C's shared-memory request (``where``: at
+    cudaFuncSetAttribute or at the launch)."""
+
+    def __init__(self, msg: str, where: str):
+        super().__init__(msg)
+        self.where = where
+
+
+def capacity_plain(rows: int, device=None):
+    """C's function in plain PyTorch: (rows, 128) float32 zeros, [0, 0] = 1."""
+    out = torch.zeros(rows, LANES, dtype=torch.float32, device=device)
+    out[0, 0] = 1.0
+    return out
+
+
+def capacity(rows: int, device):
+    """(rows, 128) float32 zeros with [0, 0] = 1, built whole in one CTA's
+    shared memory on the card (``rows * 512`` bytes); raises ``Refused``
+    when the card will not give one block that much."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return capacity_plain(rows, device)
+    out = torch.empty(rows, LANES, dtype=torch.float32, device=device)
+    where = ctypes.c_int(0)
+    lib, f = _lib(CAPACITY, "probe_capacity_launch", [_c, _i, ctypes.POINTER(ctypes.c_int), _c])
+    err = f(build.ptr(out), rows, ctypes.byref(where), build.stream_ptr(device))
+    if err:
+        stage = "cudaFuncSetAttribute" if where.value == 1 else "launch"
+        raise Refused(f"kernel {CAPACITY} refused at {stage}: CUDA error {err} "
+                      f"({lib.error_string(err).decode()})", stage)
+    build.launches[CAPACITY] += 1
+    return out
+
+
+def device_limits(device) -> dict:
+    """The card's on-chip capacities that compare with VMEM, in bytes."""
+    lib, f = _lib(CAPACITY, "probe_device_limits", [ctypes.POINTER(ctypes.c_int)])
+    vals = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        build.check(lib, CAPACITY, f(vals))
+    return dict(zip(("sharedMemPerBlockOptin", "l2CacheSize", "persistingL2CacheMaxSize"), vals))

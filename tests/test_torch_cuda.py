@@ -468,3 +468,93 @@ def test_radiance_fields_with_codes_launch_their_kernels(dev, mode):
     assert {k: build.launches[k] - before[k] for k in before} == {
         **dict.fromkeys(before, 0), name: 1, f"{name}_bwd": 1}
 
+
+
+# -- the probe kernels (kernels/probes.py) at the probe's site shapes --------
+
+def _launched(before):
+    return {k: v - before[k] for k, v in build.launches.items() if v != before[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,axis,dtype,where", [
+    (8, 8, 0, torch.float32, "shared"), (8192, 8192, 0, torch.float32, "l2"),
+    (512, 512, 1, torch.float32, "shared"), (32768, 2048, 0, torch.bfloat16, "l2")])
+def test_probe_gather_matches_plain(dev, rows, n, axis, dtype, where):
+    """G at P1's and P8's shapes, exactly: the same float32 adds in order."""
+    from monosdf_torch.kernels import probes
+
+    gen = torch.Generator(device=dev).manual_seed(rows + axis)
+    tbl = torch.randn(rows, 128, generator=gen, device=dev).to(dtype)
+    idx = torch.randint(0, rows if axis == 0 else 128, (n, 128), generator=gen, device=dev,
+                        dtype=torch.int32)
+    before, seen = dict(build.launches), []
+    out = probes.gather(tbl, idx, axis, 32, seen)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"probe_gather": 1} and seen == [where]
+    assert torch.equal(out, probes.gather_plain(tbl, idx, axis, 32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rows,run,dtype,conflict", [
+    (512, 4096, 8, torch.float32, False), (100_352, 65_536, 1, torch.float32, False),
+    (100_352, 65_536, 1, torch.bfloat16, True)])
+def test_probe_scatter_rows_matches_plain(dev, n, rows, run, dtype, conflict):
+    """S at P2's and P4's shapes: per entry within 1e-5 of the sum of the
+    magnitudes of its terms (the atomics add in another order)."""
+    from monosdf_torch.kernels import probes
+
+    gen = torch.Generator(device=dev).manual_seed(n)
+    offs = torch.randint(0, rows - run + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+    if conflict:
+        offs.zero_()
+    vals = torch.randn(run * n, 128, generator=gen, device=dev).to(dtype)
+    before = dict(build.launches)
+    out = probes.scatter_rows(offs, vals, rows, run)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"probe_scatter_rows": 1}
+    mag = probes.scatter_rows_plain(offs, vals.abs(), rows, run)
+    assert bool(((out - probes.scatter_rows_plain(offs, vals, rows, run)).abs()
+                 <= 1e-5 * mag).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctas", [1, 132])
+def test_probe_row_copy_matches_plain(dev, ctas):
+    """R at P6's shape (the (T // 8, 128) table, 65,536 rows): within 1e-5 of
+    the sum of the magnitudes."""
+    from monosdf_torch.kernels import probes
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    tab = torch.randn(762_263, 128, generator=gen, device=dev)
+    idx = torch.randint(0, 762_263, (65_536,), generator=gen, device=dev, dtype=torch.int32)
+    before = dict(build.launches)
+    out = probes.row_copy_sum(tab, idx, ctas)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"probe_row_copy": 1} and out.shape == (1, 1)
+    mag = tab[idx.long(), 0].abs().sum()
+    assert float((out - probes.row_copy_sum_plain(tab, idx)).abs()) <= 1e-5 * float(mag)
+
+
+@pytest.mark.cuda
+def test_probe_strided_permute_and_capacity_match_plain(dev):
+    """M at P7's shape, exactly (0/1 permutation); C at the card's ladder,
+    exactly, and refused at the TPU's 32 MB."""
+    from monosdf_torch.kernels import probes
+
+    x = torch.randn(8200, 128, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    P = probes.lane_permutation(37, dev)
+    before = dict(build.launches)
+    out = probes.strided_permute(x, P, 1024)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"probe_strided_permute": 1}
+    assert torch.equal(out, probes.strided_permute_plain(x, P, 1024))
+    for kb in (32, 64, 128, 227):
+        rows = kb * 1024 // 512
+        assert torch.equal(probes.capacity(rows, dev), probes.capacity_plain(rows, dev))
+    before = dict(build.launches)
+    with pytest.raises(probes.Refused, match="cudaFuncSetAttribute"):
+        probes.capacity(32 * 1024 * 1024 // 512, dev)
+    assert _launched(before) == {}
+    lim = probes.device_limits(dev)
+    assert lim["sharedMemPerBlockOptin"] >= 227 * 1024 and lim["l2CacheSize"] > 0

@@ -18,7 +18,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys, chip_smoke, monosdf_torch, monosdf_torch.cli.eval, monosdf_torch.cli.train\n"
         "import monosdf_torch.ops.hashgrid, monosdf_torch.kernels.hash_encode\n"
         "import monosdf_torch.kernels.sdf_grad_grid, monosdf_torch.kernels.radiance_split\n"
-        "import monosdf_torch.kernels.radiance_mlp\n"
+        "import monosdf_torch.kernels.radiance_mlp, monosdf_torch.kernels.probes\n"
+        "import monosdf_torch.scripts.probe_hash_primitives\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'monosdf_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -50,4 +51,10 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
         ttrain.main(["--union", "--rgb_backend", "pallas", "--steps", "1", "--rays", "2"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         teval.main(["--union", "--n_images", "1", "--img_res", "2"])
+    from monosdf_torch.scripts import probe_hash_primitives as probe
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        probe.main(["--wave", "8"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        probe.wave1(only=("sort",), T=8, N_SCATTER=8)
     assert next(init_monosdf(cfg, device="cpu").parameters()).device.type == "cpu"

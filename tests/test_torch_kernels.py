@@ -434,7 +434,7 @@ def test_k2_autograd_grads_match_jax_grad_and_double_backward():
         s, f, g = jf.sdf_feat_grad_pallas(p, jcfg.implicit, jnp.asarray(x), clamp_rows=n)
         return _k2_loss(s, f, g, jnp.asarray(tgt), n)
 
-    gj = jax.grad(jloss)(jparams["implicit"])
+    gj = jax.jit(jax.grad(jloss))(jparams["implicit"])
     grads = {}
     for name, fn in (("kernel", lambda: tf.sdf_feat_grad_pallas(
             model.implicit, tcfg.implicit, torch.from_numpy(x), clamp_rows=n)),
@@ -579,8 +579,8 @@ def test_k3_autograd_grads_match_jax_grad_and_double_backward():
                                              feat)
         return jnp.mean((out["rgb"] - 0.4) ** 2) + jnp.mean(out["normals128"][:, :3] * w)
 
-    gj = jax.grad(jloss, argnums=(0, 1, 2))(jparams["rendering"], jnp.asarray(g),
-                                             jnp.asarray(feat))
+    gj = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(jparams["rendering"], jnp.asarray(g),
+                                                      jnp.asarray(feat))
 
     def tloss(rgb, nrm):
         return ((rgb - 0.4) ** 2).mean() + (nrm * torch.from_numpy(w)).mean()

@@ -174,7 +174,7 @@ def test_rendering_apply_pallas_nerf_matches_jax_through_autograd():
                                         jnp.asarray(vd), f, c)
         return jnp.mean((out["rgb"] - 0.4) ** 2 * w), out["rgb"]
 
-    (_, rgb_j), gj = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+    (_, rgb_j), gj = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True))(
         jparams, jnp.asarray(feat), jnp.asarray(code))
     ins = [torch.from_numpy(a).requires_grad_() for a in (feat, code)]
     before = dict(build.launches)

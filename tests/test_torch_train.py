@@ -19,6 +19,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import optax
 
 import monosdf_tpu.losses as jl
 import monosdf_tpu.models.monosdf as jm
@@ -223,42 +224,42 @@ def test_adam_and_lr_schedule_match_optax_over_three_steps():
 # -- the training step ------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _jax_train_step(case: str):
-    """JAX make_train_step of the config, jitted once for the tests that use it."""
-    jcfg = _setup(case)[0]
-    jopt = jt.make_optimizer(jt.OptimConfig())
-    return jopt, jax.jit(jt.make_train_step(jcfg, jl.LossConfig(), jopt))
-
-
-def _jax_steps(case, jparams, batches, keys):
-    """The JAX training state after one step per batch, and each step's metrics."""
-    jopt, step = _jax_train_step(case)
-    state = jt.init_train_state(jparams, jopt)
-    metrics = []
-    for b, k in zip(batches, keys):
-        state, m = step(state, _to_jax(b), k)
-        metrics.append({kk: float(v) for kk, v in m.items()})
-    return state, metrics
-
-
-@functools.lru_cache(maxsize=None)
 def _jax_value_and_grad(case):
     """make_train_step's loss_fn (monosdf_tpu/train/step.py:42-53) under
-    jax.value_and_grad, jitted once."""
+    jax.value_and_grad, jitted once for the tests that use it; the step
+    count, which the loss reads, is an argument."""
     jcfg = _setup(case)[0]
 
-    def loss_fn(params, batch, key):
+    def loss_fn(params, batch, key, step):
         image_code = None
         if jcfg.rendering.per_image_code:
             image_code = params["rendering"]["embeddings"][batch["indices"]]
         out = jm.render_rays(params, jcfg, batch["rays"], key, training=True,
                              image_code=image_code)
-        losses = jl.monosdf_loss(jl.LossConfig(), out, batch["gt"], 0)
+        losses = jl.monosdf_loss(jl.LossConfig(), out, batch["gt"], step)
         mse = jnp.mean((out["rgb_values"] - batch["gt"]["rgb"]) ** 2)
         losses["psnr"] = -10.0 * jnp.log(mse) / jnp.log(10.0)
         return losses["loss"], losses
 
     return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+
+
+def _jax_steps(case, jparams, batches, keys):
+    """The JAX training step (make_train_step's train_step,
+    monosdf_tpu/train/step.py:55-62: loss_fn under value_and_grad, then the
+    optimizer's update, applied) once per batch, on the jitted
+    value_and_grad the step test compiles: the parameters after the steps,
+    and each step's metrics."""
+    vg = _jax_value_and_grad(case)
+    jopt = jt.make_optimizer(jt.OptimConfig())
+    update = jax.jit(jopt.update)
+    params, opt_state, metrics = jparams, jopt.init(jparams), []
+    for i, (b, k) in enumerate(zip(batches, keys)):
+        (_, m), grads = vg(params, _to_jax(b), k, jnp.int32(i))
+        updates, opt_state = update(grads, opt_state, params)
+        params = optax.apply_updates(params, updates)
+        metrics.append({kk: float(v) for kk, v in m.items()})
+    return params, metrics
 
 
 # Loss and its terms (rtol 1e-5; the depth term 1e-4: its scale/shift solve
@@ -275,7 +276,7 @@ def test_training_step_matches_jax(case):
     jcfg, tcfg, jparams, tree = _setup(case)
     batch = _batch(seed=2)
     key = jax.random.PRNGKey(7)
-    (_, mj), gj = _jax_value_and_grad(case)(jparams, _to_jax(batch), key)
+    (_, mj), gj = _jax_value_and_grad(case)(jparams, _to_jax(batch), key, jnp.int32(0))
     jopt = jt.make_optimizer(jt.OptimConfig())
     upd, _ = jopt.update(gj, jopt.init(jparams), jparams)
     pj = _flat_jax(jax.tree_util.tree_map(lambda a, u: a + u, jparams, upd))
@@ -308,14 +309,14 @@ def test_training_step_matches_jax(case):
 
 
 def test_three_step_loss_trajectory_matches_jax():
-    """Three steps of JAX make_train_step and of the port's on distinct
+    """Three steps of the JAX training step and of the port's on distinct
     batches and draws, kernel backends: the losses follow JAX's at 1e-4
     (each step starts from parameters that agree to float32 rounding of the
     update), and so do the parameters after them."""
     jcfg, tcfg, jparams, tree = _setup("pallas")
     batches = [_batch(seed=10 + i) for i in range(3)]
     keys = [jax.random.PRNGKey(20 + i) for i in range(3)]
-    state, mj = _jax_steps("pallas", jparams, batches, keys)
+    jp_after, mj = _jax_steps("pallas", jparams, batches, keys)
     model = _model(tcfg, tree)
     step = make_train_step(tcfg, tl.LossConfig(), make_optimizer(OptimConfig(),
                                                                   model.named_parameters()))
@@ -328,7 +329,7 @@ def test_three_step_loss_trajectory_matches_jax():
     # is near Adam's eps takes a different share of that move from float32
     # differences in its gradient (measured 1.5e-5); a wrong step would be
     # off by up to 2 lr
-    pj = _flat_jax(state.params)
+    pj = _flat_jax(jp_after)
     for n, p in model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), pj[n], atol=5e-5, rtol=0, err_msg=n)
 
