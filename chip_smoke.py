@@ -3,18 +3,22 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --kernels  # build and check the kernels only (probes included)
 
-Three models: the bench's ScanNet-MLP model (bench.py), its hash-grid
-model (bench.py --grids) and the appearance-code model of
+Three models: the bench's ScanNet-MLP model (bench.py), also with its
+sweeps through K1-PE (sweep_pe_in_kernel, scripts/bench_step.py --sweep_pe),
+its hash-grid model (bench.py --grids) and the appearance-code model of
 confs/synth_union_quality.conf (cli/eval.py union_codes_config: per-image
 codes, white background, sphere sampler), the last with its radiance
 through K3 and through K8a. Phases (any failure exits non-zero):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the nineteen kernels from monosdf_torch/csrc with nvcc for sm_90a,
-   one nvcc per source, all at once;
+2. build the kernels' nineteen libraries from monosdf_torch/csrc with nvcc
+   for sm_90a, one nvcc per source, all at once (twenty kernels: K1-PE is
+   K1's library on raw points, counted on its own);
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, and time kernel and plain version (CUDA events):
    the forwards at the shapes of one 1024-ray render chunk of the bench's
-   ScanNet-MLP model, K2's training forward (clamp_rows, flag, saved Z) and
+   ScanNet-MLP model (K1 and K1-PE at the sweep's 131,072 points, on the
+   embedding and on the raw points), K2's training forward (clamp_rows,
+   flag, saved Z) and
    K2b at the training step's 104,448 points, K3b at its 100,352 samples;
    for the grid model K6 at the sweeps' 131,072 points (6 levels) and at
    the step's 104,448 points (16 levels, with tangents), K5, K7f and K7b at
@@ -27,7 +31,8 @@ through K3 and through K8a. Phases (any failure exits non-zero):
    (K1 = K4 = 5 and K2 = K3 = 1 per chunk); render every chunk again with
    each kernel's plain version in its wrapper's place, once through the
    sampler and once at the kernel render's own samples (render_samples),
-   and compare; time one chunk both ways;
+   and compare; time one chunk both ways; phases 4 and 5 again with
+   sweep_pe_in_kernel (K1-PE = 5 and K1 = 0 per chunk and per step);
 5. train: 3 warm-up and 20 timed steps of cli/train.py's step at full
    width in bf16 on distinct 1024-ray batches, counting launches (K1 = K4
    = 5, K2f = K3f = K2b = K3b = 1 per step), failing on a non-finite loss
@@ -61,7 +66,8 @@ through K3 and through K8a. Phases (any failure exits non-zero):
    against its kernel's plain version on the same inputs, and each kernel
    again on seeded random inputs of the same shapes (the probe's own values
    are constant); times, rates, bounds and library calls;
-11. print a ``render``, a ``train``, a ``render_grids``, a ``train_grids``,
+11. print a ``render``, a ``train``, a ``render_pe``, a ``train_pe``, a
+   ``render_grids``, a ``train_grids``,
    a ``render_codes``, a ``train_codes``, a ``render_codes_split``, a
    ``train_codes_split``, a ``nerf_radiance`` and a ``probes`` JSON line,
    the ``kernels`` JSON line, the card line (nvidia-smi's name and power
@@ -114,6 +120,8 @@ PROBE_SITES = {
     "probe_capacity": ["scripts/probe_hash_primitives.py:495", "scripts/probe_hash_primitives.py:853"],
 }
 TPU_KERNELS.update({name: sites[0] for name, sites in PROBE_SITES.items()})
+# K1-PE: K1's library on raw points (kernel_pe, inside the pl.pallas_call at :310)
+TPU_KERNELS["sdf_mlp_pe"] = "monosdf_tpu/ops/pallas_mlp.py:140"
 _NONE = dict.fromkeys(TPU_KERNELS, 0)
 PER_CHUNK = {**_NONE, "sdf_mlp": 5, "sampler_machinery": 5, "sdf_grad": 1, "radiance_norm": 1}
 PER_STEP = {**PER_CHUNK, "sdf_grad_bwd": 1, "radiance_norm_bwd": 1}
@@ -127,13 +135,18 @@ PER_STEP_GRIDS = {**PER_CHUNK_GRIDS, "sdf_grad_grid_bwd": 1, "hash_encode_bwd": 
 # code operand); with rgb_backend 'pallas' K8a and its backward in K3's place
 PER_CHUNK_SPLIT = {**PER_CHUNK, "radiance_norm": 0, "radiance_split": 1}
 PER_STEP_SPLIT = {**PER_CHUNK_SPLIT, "sdf_grad_bwd": 1, "radiance_split_bwd": 1}
+# the MLP model with sweep_pe_in_kernel: its 5 sweeps through K1-PE, none through K1
+PER_CHUNK_PE = {**PER_CHUNK, "sdf_mlp": 0, "sdf_mlp_pe": 5}
+PER_STEP_PE = {**PER_STEP, "sdf_mlp": 0, "sdf_mlp_pe": 5}
 # the main paths: JSON tag, launches per chunk and per step
 PATHS = {
     "mlp": ("", PER_CHUNK, PER_STEP),
+    "pe": ("_pe", PER_CHUNK_PE, PER_STEP_PE),
     "grids": ("_grids", PER_CHUNK_GRIDS, PER_STEP_GRIDS),
     "codes": ("_codes", PER_CHUNK, PER_STEP),
     "codes_split": ("_codes_split", PER_CHUNK_SPLIT, PER_STEP_SPLIT),
 }
+SWEEPS = ("sdf_mlp", "sdf_mlp_pe", "sampler_machinery")  # the sampler's kernels
 WARMUP_STEPS, TIMED_STEPS = 3, 20
 # stated tolerances, kernel vs plain version on the card: err <= atol + rtol * max|plain|;
 # bf16: a rounding that lands on the neighbouring bf16 value (ulp 2^-7 at 1)
@@ -277,6 +290,7 @@ def use_plain_versions(on: bool):
     for mod, name, plain in (
         # the sweeps hand K1 its packed weights, which the plain version has no use for
         (fields, "sdf_mlp", lambda *a, packed=None, **kw: k1.sdf_mlp_plain(*a, **kw)),
+        (fields, "sdf_mlp_pe", lambda *a, packed=None, **kw: k1.sdf_mlp_pe_plain(*a, **kw)),
         (fields, "hash_encode_fwd", k6.hash_encode_fwd_plain),
         (sampler, "sampler_iter_machinery", k4.sampler_iter_machinery_plain),
         (k2, "_forward", k2.sdf_mlp_with_grad_plain),
@@ -341,10 +355,18 @@ def kernel_checks(model, cfg, dev):
             k4_inputs.append((st, dt, ds, bp, torch.tensor(0.01, device=dev),
                               it == cfg.sampler.max_total_iters - 1))
 
+        # K1 and K1-PE as the sweeps call them: the weights packed once
+        pk = k1.pack(ws_sweep, bs_sweep, imp.skip_in)
         cases = {
             "sdf_mlp": (
-                lambda d: [k1.sdf_mlp(ws_sweep, bs_sweep, emb, imp.skip_in, d)],
+                lambda d: [k1.sdf_mlp(ws_sweep, bs_sweep, emb, imp.skip_in, d, packed=pk)],
                 lambda d: [k1.sdf_mlp_plain(ws_sweep, bs_sweep, emb, imp.skip_in, d)],
+            ),
+            "sdf_mlp_pe": (
+                lambda d: [k1.sdf_mlp_pe(ws_sweep, bs_sweep, x_sweep, imp.multires, imp.skip_in,
+                                         d, packed=pk)],
+                lambda d: [k1.sdf_mlp_pe_plain(ws_sweep, bs_sweep, x_sweep, imp.multires,
+                                               imp.skip_in, d)],
             ),
             "sdf_grad": (
                 lambda d: list(k2.sdf_mlp_with_grad(ws, bs, x_main, imp.multires, imp.skip_in, d,
@@ -417,6 +439,9 @@ def kernel_checks(model, cfg, dev):
         k4_f += R * N * (11 * 20 + 12)  # ~20 FLOP per sample per error bound
     bounds = {
         "sdf_mlp": bound_ms(sweep_flops, sweep_bytes, H100_BF16_FLOPS),
+        # K1-PE reads the points (float32) instead of the embedding
+        "sdf_mlp_pe": bound_ms(sweep_flops, nbytes(x_sweep) + n_sweep * 4 + nbytes(*ws_sweep, *bs_sweep),
+                               H100_BF16_FLOPS),
         "sdf_grad": bound_ms(k2_flops, k2_bytes, H100_BF16_FLOPS),
         "radiance_norm": bound_ms(k3_flops, k3_bytes, H100_BF16_FLOPS),
         "sampler_machinery": bound_ms(k4_f / 5, k4_b / 5, H100_F32_FLOPS),
@@ -548,7 +573,9 @@ def training_kernel_checks(model, cfg, dev, results):
                          ("radiance_norm_bwd", k3b_flops, k3b_bytes)):
         b, by = bound_ms(fl, nb, H100_BF16_FLOPS)
         results[name].update(bound_ms=b, bound_by=by)
-    print(f"train-shape kernels (bf16, ms per launch): {json.dumps({k: {kk: v for kk, v in r.items() if 'ms' in kk or 'bound' in kk} for k, r in results.items() if k in ('sdf_grad', 'sdf_grad_bwd', 'radiance_norm_bwd')})}", flush=True)
+    # K1's and K1-PE's sweep times (phase 3) beside K2's and K3b's
+    shown = ("sdf_mlp", "sdf_mlp_pe", "sdf_grad", "sdf_grad_bwd", "radiance_norm_bwd")
+    print(f"train-shape kernels (bf16, ms per launch): {json.dumps({k: {kk: v for kk, v in r.items() if 'ms' in kk or 'bound' in kk} for k, r in results.items() if k in shown})}", flush=True)
     if not ok:
         fail("a training kernel disagrees with its plain version beyond the stated tolerance")
 
@@ -877,6 +904,8 @@ def path_config(which: str, dname: str):
 
     if which in ("mlp", "grids"):
         return bench_config(which == "grids", dname)
+    if which == "pe":
+        return dataclasses.replace(bench_config(False, dname), sweep_pe_in_kernel=True)
     cfg = union_codes_config(dname)
     return dataclasses.replace(cfg, rgb_backend="pallas") if which == "codes_split" else cfg
 
@@ -1102,7 +1131,7 @@ def train_phase(dev, which: str = "mlp"):
               f"{l_ratio:.3e}); worst gradient err / tolerance {worst:.3e} ({worst_name}); "
               f"launches {counts_k}", flush=True)
         # the samples are fixed: the sampler's kernels (and the sweeps' K6) do not run
-        expect_k = {**per_step, "sdf_mlp": 0, "sampler_machinery": 0}
+        expect_k = {**per_step, **dict.fromkeys(SWEEPS, 0)}
         if which == "grids":
             expect_k["hash_encode"] -= per_step["sdf_mlp"]
         if counts_k != expect_k:
@@ -1157,7 +1186,12 @@ def _profile(fn, reps: int, what: str) -> dict:
     for k, v in per_name.items():
         if not any(n in k for n in names):
             other[k[:60]] = other.get(k[:60], 0.0) + v
+    # the tensor-core kernels' parts: K1's bf16 kernel, K2b's two passes and their sum
+    parts = ("sdf_mlp_kernel_tc", "sdf_grad_bwd_kernel_ct", "sdf_grad_bwd_kernel_dw",
+             "reduce_partials_tc")
+    kern_parts = {n: sum(v for k, v in per_name.items() if n in k) for n in parts}
     return {"ms": ms, "device_busy_ms": busy, "busy_share": busy / ms, "kernels_ms": kern,
+            "tensor_core_parts_ms": kern_parts,
             "other_ms": busy - sum(kern.values()),
             "other_top_ms": dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])}
 
@@ -1514,7 +1548,7 @@ def main(argv):
     lines["probes"] = probes_phase(dev, results)
 
     kernels = []
-    for name in build.SOURCES:
+    for name in build.KERNELS:
         r = results[name]
         # the main paths' runs, each counted from 0: the bf16 renders (16
         # chunks each), the timed training steps of every model, the nerf
@@ -1527,7 +1561,7 @@ def main(argv):
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": f"monosdf_torch/csrc/{name}.cu",
+            "source": f"monosdf_torch/csrc/{build.SOURCE_OF[name]}.cu",
             "replaces": TPU_KERNELS[name],
             "launches": sum(runs_n.values()),
             **runs_n,

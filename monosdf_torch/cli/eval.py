@@ -8,8 +8,9 @@ Each frame is rendered in chunks of ``split_n_pixels`` rays through
 ``bench.py --grids`` (``bench_grids_config``), or with ``--union`` the
 appearance-code model of ``confs/synth_union_quality.conf``
 (``union_codes_config``: each frame renders with its own per-image code;
-``--rgb_backend pallas`` takes its radiance through K8a instead of K3); its
-parameters come from
+``--rgb_backend pallas`` takes its radiance through K8a instead of K3;
+``--sweep_pe`` runs an MLP model's sampler sweeps on raw points through
+K1-PE); its parameters come from
 ``--params`` (an ``.npz``
 written by ``params.save_params_npz``, e.g. from a JAX checkpoint) or from
 the port's own initialisation (``--init_seed``). The scene is the synthetic
@@ -18,6 +19,7 @@ sphere. Runs on the card unless ``--device cpu``.
     python -m monosdf_torch.cli.eval --n_images 4 --img_res 64 --out_dir evaluation
     python -m monosdf_torch.cli.eval --grids --out_dir evaluation_grids
     python -m monosdf_torch.cli.eval --union --out_dir evaluation_union
+    python -m monosdf_torch.cli.eval --sweep_pe --out_dir evaluation_pe
 """
 
 from __future__ import annotations
@@ -147,13 +149,16 @@ def bench_config(grids: bool, compute_dtype: str = "bfloat16") -> MonoSDFConfig:
 
 def model_config(args, compute_dtype: str = "bfloat16") -> MonoSDFConfig:
     """The model an entry point's flags name (``--union``, ``--grids`` or
-    the bench's MLP model), with ``--rgb_backend`` when given."""
+    the bench's MLP model), with ``--rgb_backend`` when given and
+    ``sweep_pe_in_kernel`` under ``--sweep_pe``."""
     if args.union:
         cfg = union_codes_config(compute_dtype)
     else:
         cfg = bench_config(args.grids, compute_dtype)
     if args.rgb_backend is not None:
         cfg = dataclasses.replace(cfg, rgb_backend=args.rgb_backend)
+    if args.sweep_pe:
+        cfg = dataclasses.replace(cfg, sweep_pe_in_kernel=True)
     return cfg
 
 
@@ -167,6 +172,9 @@ def add_model_args(ap):
     ap.add_argument("--rgb_backend", default=None, choices=("fused", "pallas"),
                     help="the radiance through K3 (fused; needs the MLP trunk's K2) or K8a "
                          "(pallas); default: the model's own")
+    ap.add_argument("--sweep_pe", action="store_true",
+                    help="the sampler sweeps on raw points, PE inside the kernel (K1-PE; MLP "
+                         "models), as scripts/bench_step.py --sweep_pe")
 
 
 def scene_frames(scene: dict, device) -> list:

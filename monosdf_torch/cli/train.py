@@ -6,7 +6,8 @@ the hash-grid model of ``bench.py --grids`` instead, with the grid-mode Adam
 the appearance-code model of ``confs/synth_union_quality.conf``, each ray
 with its frame's per-image code (a row of ``rendering.embeddings``, trained
 with the rest); ``--rgb_backend pallas`` takes the radiance through K8a
-instead of K3.
+instead of K3; ``--sweep_pe`` the sampler sweeps of an MLP model through
+K1-PE (the positional encoding inside the kernel, ``sweep_pe_in_kernel``).
 
 The model is ``cli/eval.py bench_mlp_config``, ``bench_grids_config`` or
 ``union_codes_config`` (bf16 operands with float32 sums, or
@@ -24,6 +25,7 @@ renders: the trainer's other features come with a later slice.
     python -m monosdf_torch.cli.train --steps 20 --out trained.npz
     python -m monosdf_torch.cli.train --grids --steps 20 --out trained_grids.npz
     python -m monosdf_torch.cli.train --union --steps 20 --out trained_union.npz
+    python -m monosdf_torch.cli.train --sweep_pe --steps 20 --out trained_pe.npz
 """
 
 from __future__ import annotations

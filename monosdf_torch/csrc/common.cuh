@@ -203,9 +203,36 @@ struct ZPtrs {
   void* p[MK_MAX_LAYERS];
 };
 
+// Column c of the positional embedding [x, sin(2^f x), cos(2^f x), ...] of
+// the point xp (d0 = 3 (1 + 2 multires) columns; 0 past d0), and in t its
+// derivative along each axis (t must hold zeros). sinf / cosf, not the
+// __sinf intrinsics: the arguments reach 2^(multires - 1) |x|, ~35 rad.
+__device__ __forceinline__ float pe_value(const float* xp, int c, int d0, float t[3]) {
+  if (c < 3) {
+    t[c] = 1.0f;
+    return xp[c];
+  }
+  if (c >= d0) return 0.0f;
+  const int f = (c - 3) / 6, part = ((c - 3) % 6) / 3, k = (c - 3) % 3;
+  const float fr = (float)(1 << f);
+  const float v = fr * xp[k];
+  const float sv = sinf(v), cv = cosf(v);
+  t[k] = part == 0 ? fr * cv : -fr * sv;
+  return part == 0 ? sv : cv;
+}
+
+// The embedding alone (pe_value without the tangents).
+__device__ __forceinline__ float pe_value(const float* xp, int c, int d0) {
+  float t[3] = {0.0f, 0.0f, 0.0f};
+  return pe_value(xp, c, d0, t);
+}
+
 // xs <- the tile's PTS points (zero past N); X0 <- their embedding
 // [x, sin(2^f x), cos(2^f x), ...] (row p) and its tangent along axis k
 // (row (k+1)*PTS + p), as TPU kernel_pe computes them.
+// BAR > 0: threads 0..THREADS-1 sync on named barrier BAR instead of
+// __syncthreads (a kernel with a producer warp beside them).
+template <int BAR = 0>
 __device__ __forceinline__ void load_pe_tile(const float* __restrict__ x, int N, int p0,
                                              int multires, float (*xs)[3], float* X0) {
   const int tid = threadIdx.x;
@@ -214,21 +241,15 @@ __device__ __forceinline__ void load_pe_tile(const float* __restrict__ x, int N,
     const int p = tid / 3, k = tid - p * 3;
     xs[p][k] = p0 + p < N ? x[(size_t)(p0 + p) * 3 + k] : 0.0f;
   }
-  __syncthreads();
+  if constexpr (BAR > 0) {
+    asm volatile("bar.sync %0, %1;\n" ::"n"(BAR), "n"(THREADS) : "memory");
+  } else {
+    __syncthreads();
+  }
   for (int idx = tid; idx < PTS * LD0; idx += THREADS) {
     const int p = idx / LD0, c = idx - p * LD0;
-    float e = 0.0f, t[3] = {0.0f, 0.0f, 0.0f};
-    if (c < 3) {
-      e = xs[p][c];
-      t[c] = 1.0f;
-    } else if (c < d0) {
-      const int f = (c - 3) / 6, part = ((c - 3) % 6) / 3, k = (c - 3) % 3;
-      const float fr = (float)(1 << f);
-      const float v = fr * xs[p][k];
-      const float sv = sinf(v), cv = cosf(v);
-      e = part == 0 ? sv : cv;
-      t[k] = part == 0 ? fr * cv : -fr * sv;
-    }
+    float t[3] = {0.0f, 0.0f, 0.0f};
+    const float e = pe_value(xs[p], c, d0, t);
     X0[p * LD0 + c] = e;
 #pragma unroll
     for (int k = 0; k < 3; ++k) X0[((k + 1) * PTS + p) * LD0 + c] = t[k];

@@ -8,8 +8,9 @@ with ``ctypes``. ``build_all`` starts one ``nvcc`` per source at once.
 Every C entry point launches on the stream it is given, allocates nothing
 and returns ``cudaGetLastError()``; ``check`` raises on a non-zero code.
 
-``launches[name]`` counts the launches of each kernel: a wrapper adds one
-right after its kernel was launched, and nowhere else.
+``launches[name]`` counts the launches of each kernel (``KERNELS``: one per
+source, and K1-PE apart from K1): a wrapper adds one right after its kernel
+was launched, and nowhere else.
 """
 
 from __future__ import annotations
@@ -36,7 +37,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launches = {name: 0 for name in SOURCES}
+# the kernels counted: each source's, and K1-PE, K1's library on raw points
+KERNELS = SOURCES + ("sdf_mlp_pe",)
+SOURCE_OF = {**{name: name for name in SOURCES}, "sdf_mlp_pe": "sdf_mlp"}
+
+launches = {name: 0 for name in KERNELS}
 build_logs: dict = {}
 _libs: dict = {}
 

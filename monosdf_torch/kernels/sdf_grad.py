@@ -32,8 +32,13 @@ float32 sums under mixed precision.
 
 Bound on the card: operations (forward about 4.4e11 FLOP, backward about
 twice that, at the bench's 104,448 training points, against ~1.7 GB of bf16
-Z written and read back). These first versions compute with float32 FMAs on
-the CUDA cores.
+Z written and read back). The forward and the float32 backward compute with
+float32 FMAs on the CUDA cores. The bf16 backward runs on the tensor cores
+in two passes (``_bwd_tc``, csrc/sdf_grad_bwd.cu): the tile loop stores each
+layer's bf16 CT and input A, 64 rows a block in ``wgmma``'s operand layout
+(~3.7 GB of scratch at the bench's shapes), and a second kernel sums
+``A^T CT`` over all rows, so no dW partial goes through device memory per
+tile; partials are summed in a fixed order (two runs, the same bits).
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import torch
 
 from ..nn import matmul_rounded, round_to
 from . import build
-from .sdf_mlp import SQRT2, check_mlp_dims
+from .sdf_mlp import SQRT2, WG_N, check_mlp_dims, pack_wgmma_b
 
 NAME = "sdf_grad"
 BWD_NAME = "sdf_grad_bwd"
@@ -204,7 +209,12 @@ def _bwd_lib():
     lib.sdf_grad_bwd_launch.restype = ctypes.c_int
     lib.sdf_grad_bwd_launch.argtypes = [
         _c, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), _c, _c, ctypes.POINTER(_c),
-        _c, _c, _c, _c, _c, ctypes.c_int, ctypes.c_int, _c, ctypes.c_int, _c,
+        _c, _c, _c, _c, _c, ctypes.c_int, ctypes.c_int, _c, _c,
+    ]
+    _i, _pi, _pc = ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(_c)
+    lib.sdf_grad_bwd_tc_launch.restype = ctypes.c_int
+    lib.sdf_grad_bwd_tc_launch.argtypes = [
+        _c, _i, _i, _pi, _c, _pi, _pc, _pc, _pc, _pi, _c, _c, _c, _c, _c, _i, _i, _c, _i, _i, _c, _c,
     ]
     return lib
 
@@ -214,6 +224,57 @@ def _z_ptrs(zs):
     for l, z in enumerate(zs):
         arr[l] = z.data_ptr()
     return arr
+
+
+def _ints(vals):
+    return (ctypes.c_int * build.MAX_LAYERS)(*vals, *[0] * (build.MAX_LAYERS - len(vals)))
+
+
+BWD_KC = 32     # csrc/sdf_grad_bwd.cu TB_KC: W rows per pass-1 ring stage
+BWD_SMALL = 2816  # csrc/sdf_grad_bwd.cu MAX_SMALL
+TILE_ROWS = 64  # rows of a 16-point tile: the primal rows, then the three tangents'
+
+
+def _bwd_tc(ws, x, zs, cs, cf, cg, flag, multires, desc, out):
+    """K2b's bf16 path (csrc/sdf_grad_bwd.cu): pass 1 stores every layer's
+    CT and input A in wgmma's layout, 64 rows a block; pass 2 sums A^T CT
+    over the blocks on the tensor cores; partials are summed in order."""
+    dev = x.device
+    N, L = x.shape[0], len(ws)
+    if any(w.shape[0] > 256 for w in ws):
+        raise ValueError("the tensor-core backward takes layer inputs up to 256 wide")
+    n_small = sum(w.shape[1] for w in ws) + ws[-1].shape[0]
+    if n_small > BWD_SMALL:
+        raise ValueError(f"{n_small} bias and SDF-column gradients > {BWD_SMALL}")
+    # pass 1's B operands: W_l[:nprev]^T (its K: layer l's outputs)
+    wb, offs = pack_wgmma_b([ws[l][:ws[l - 1].shape[1]].t() for l in range(1, L)], BWD_KC)
+    n_tiles = -(-N // 16)
+    kap = [-(-w.shape[0] // 128) * 128 for w in ws]
+    blk = n_tiles * TILE_ROWS
+    scratch = torch.empty(blk * (WG_N * L + sum(kap)), dtype=torch.bfloat16, device=dev)
+    ct_ptrs, a_ptrs = (_c * build.MAX_LAYERS)(), (_c * build.MAX_LAYERS)()
+    off = 0
+    for l in range(L):
+        ct_ptrs[l] = scratch[off:].data_ptr()
+        off += blk * WG_N
+    for l in range(L):
+        a_ptrs[l] = scratch[off:].data_ptr()
+        off += blk * kap[l]
+    sms = build.num_sms(dev)
+    grid1 = min(sms, n_tiles)
+    blocks = sum(k // 128 for k in kap)
+    splits = max(1, min(n_tiles, sms // blocks))
+    part1 = torch.empty(grid1, n_small, dtype=torch.float32, device=dev)
+    part2 = torch.empty(blocks * splits, 128, WG_N, dtype=torch.float32, device=dev)
+    n_w = sum(w.shape[0] * w.shape[1] for w in ws) - ws[-1].shape[0]
+    lib = _bwd_lib()
+    err = lib.sdf_grad_bwd_tc_launch(
+        build.ptr(x), N, multires, desc, build.ptr(wb), _ints([0] + offs), _z_ptrs(zs), ct_ptrs,
+        a_ptrs, _ints(kap), build.ptr(cs), build.ptr(cf), build.ptr(cg),
+        build.ptr(flag) if flag is not None else None, build.ptr(part1), grid1, n_small,
+        build.ptr(part2), splits, max(n_small, n_w), build.ptr(out), build.stream_ptr(dev),
+    )
+    build.check(lib, BWD_NAME, err)
 
 
 def _forward(ws, bs, x, multires, skip_in, dtype, bounding_sphere, sphere_scale, clamp_rows,
@@ -288,12 +349,15 @@ def sdf_mlp_with_grad_bwd(ws, bs, x, zs, c_sdf, c_feat, c_grad, multires: int, s
     if flag is not None:
         build.require(flag, "flag", torch.float32, (N, 1), dev)
     P, desc = build.pack_mlp(ws, bs, tuple(skip_in))
-    # W^T of every layer at the same offsets, for ct_A = CT W^T
-    PT, _ = build.pack_mlp([w.t() for w in ws], bs)
     build.require(P, "weights", torch.float32, P.shape, dev)
     n_params = P.numel()
     out = torch.empty(n_params, dtype=torch.float32, device=dev)
-    if N > 0:
+    if N > 0 and dtype is not None:
+        _bwd_tc(ws, x, zs, cs, cf, cg, flag, multires, desc, out)
+        build.launches[BWD_NAME] += 1
+    elif N > 0:
+        # W^T of every layer at the same offsets, for ct_A = CT W^T
+        PT, _ = build.pack_mlp([w.t() for w in ws], bs)
         grid = min(build.num_sms(dev), -(-N // 16))  # csrc/sdf_grad_bwd.cu PTS points a tile
         work = torch.empty(grid, n_params, dtype=torch.float32, device=dev)
         lib = _bwd_lib()
@@ -301,7 +365,7 @@ def sdf_mlp_with_grad_bwd(ws, bs, x, zs, c_sdf, c_feat, c_grad, multires: int, s
             build.ptr(x), N, multires, desc, build.ptr(P), build.ptr(PT), _z_ptrs(zs),
             build.ptr(cs), build.ptr(cf), build.ptr(cg),
             build.ptr(flag) if flag is not None else None, build.ptr(work), grid, n_params,
-            build.ptr(out), int(dtype is not None), build.stream_ptr(dev),
+            build.ptr(out), build.stream_ptr(dev),
         )
         build.check(lib, BWD_NAME, err)
         build.launches[BWD_NAME] += 1

@@ -18,14 +18,14 @@ import math
 import torch
 from torch import nn
 
-from ..kernels.build import pack_mlp
 from ..kernels.hash_encode import encode_diff, hash_encode_fwd
 from ..kernels.radiance_mlp import mlp_with_input_grad
 from ..kernels.radiance_norm import radiance_norm
 from ..kernels.radiance_split import radiance_split
 from ..kernels.sdf_grad import pe_with_tangents, sdf_mlp_with_grad
 from ..kernels.sdf_grad_grid import sdf_mlp_with_grad_in
-from ..kernels.sdf_mlp import sdf_mlp
+from ..kernels.sdf_mlp import pack as pack_sweep
+from ..kernels.sdf_mlp import sdf_mlp, sdf_mlp_pe
 from ..nn import Linear, apply_linear, geometric_linear_init, init_linear, softplus_beta
 from ..ops.embedder import pe_dim, positional_encoding
 from ..ops.hashgrid import HashGridConfig, hash_encode, init_hashgrid, read_table
@@ -160,22 +160,29 @@ def sdf_value(params: ImplicitNet, cfg: ImplicitNetConfig, x: torch.Tensor,
 
 def sweep_weights(params: ImplicitNet, cfg: ImplicitNetConfig):
     """K1's weights for the sampler's sweeps: the effective (W, b) lists
-    with the last layer cut to its SDF column, and their packed buffer and
-    descriptor. A render resolves them once for all of its sweeps."""
+    with the last layer cut to its SDF column, and their packed buffers
+    (``kernels.sdf_mlp.pack``: float32, and bf16 in the tensor cores'
+    layout). A render resolves them once for all of its sweeps."""
     ws, bs = effective_linear_weights(params)
     ws[-1], bs[-1] = ws[-1][:, :1], bs[-1][:1]
-    return ws, bs, pack_mlp(ws, bs, tuple(cfg.skip_in))
+    return ws, bs, pack_sweep(ws, bs, tuple(cfg.skip_in))
 
 
 def sdf_value_pallas(params: ImplicitNet, cfg: ImplicitNetConfig, x: torch.Tensor,
-                     dtype=None, weights=None) -> torch.Tensor:
-    """The sampler sweeps' SDF through K1: the embedding is computed here,
-    the last layer is cut to its SDF column, the sphere clamp comes after.
-    ``weights``: ``sweep_weights(params, cfg)``, resolved here if None."""
+                     dtype=None, pe_in_kernel: bool = False, weights=None) -> torch.Tensor:
+    """The sampler sweeps' SDF through K1: the last layer is cut to its SDF
+    column, the sphere clamp comes after. The embedding is computed here, or
+    with ``pe_in_kernel`` inside the kernel from the raw points (K1-PE, as
+    monosdf_tpu's ``sdf_value_pallas(pe_in_kernel=True)``). ``weights``:
+    ``sweep_weights(params, cfg)``, resolved here if None."""
     ws, bs, packed = weights if weights is not None else sweep_weights(params, cfg)
-    inp = positional_encoding(x, cfg.multires)
-    out = sdf_mlp(ws, bs, inp.reshape(-1, inp.shape[-1]), tuple(cfg.skip_in), dtype=dtype,
-                  packed=packed)
+    flat = x.reshape(-1, 3)
+    if pe_in_kernel:
+        out = sdf_mlp_pe(ws, bs, flat, cfg.multires, tuple(cfg.skip_in), dtype=dtype,
+                         packed=packed)
+    else:
+        out = sdf_mlp(ws, bs, positional_encoding(flat, cfg.multires), tuple(cfg.skip_in),
+                      dtype=dtype, packed=packed)
     return _clamp_sdf(cfg, out.reshape(*x.shape[:-1], 1), x)
 
 

@@ -72,6 +72,10 @@ class MonoSDFConfig:
     # 'jnp' or 'pallas' (K1 on the (N, 39) embedding, or in grid mode on
     # [PE | K6 features]): the sampler's no-grad SDF sweeps
     sampler_backend: str = "jnp"
+    # MLP mode, sampler_backend 'pallas': the sweeps take the raw points and
+    # compute the positional encoding inside the kernel (K1-PE) instead of
+    # reading the (N, 39) embedding (K1)
+    sweep_pe_in_kernel: bool = False
     # 'jnp' or 'pallas' (K2; in grid mode K6/K5 and K7): SDF, features and
     # spatial gradient
     diff_backend: str = "jnp"
@@ -178,7 +182,7 @@ def sample_rays(params: MonoSDF, cfg: MonoSDFConfig, rays: dict, training: bool 
         else:
             def sampler_sdf(pts):
                 return sdf_value_pallas(params.implicit, imp_cfg, pts, sampler_dtype,
-                                        weights)[..., 0]
+                                        cfg.sweep_pe_in_kernel, weights)[..., 0]
     else:
         def sampler_sdf(pts):
             return sdf_value(params.implicit, imp_cfg, pts, dtype=sampler_dtype,

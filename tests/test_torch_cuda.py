@@ -32,7 +32,7 @@ from monosdf_torch.kernels.sdf_grad import (
     sdf_mlp_with_grad_bwd_plain,
     sdf_mlp_with_grad_plain,
 )
-from monosdf_torch.kernels.sdf_mlp import sdf_mlp, sdf_mlp_plain
+from monosdf_torch.kernels.sdf_mlp import sdf_mlp, sdf_mlp_pe, sdf_mlp_pe_plain, sdf_mlp_plain
 from monosdf_torch.models.fields import (
     ImplicitNetConfig,
     RenderingNetConfig,
@@ -109,6 +109,45 @@ def test_k1_k2_k3_match_plain(dev, dtype):
         **dict.fromkeys(before, 0), "sdf_mlp": 1, "sdf_grad": 1, "radiance_norm": 1}
 
 
+# K1 on the 39-wide embedding (multires 6, as the bench's sweeps) and K1-PE on
+# the raw points, and K1 on a 71-wide input (the grid trunk's [PE | 32
+# features], a 2x48 trunk without skip): 700 points, and 131,072 + 5 (the
+# sweep's rows and a ragged last tile; the persistent tile loop wraps)
+IMP_PE = ImplicitNetConfig(feature_vector_size=32, dims=(48,) * 4, skip_in=(2,), multires=6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [700, 131072 + 5])
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_k1_and_k1_pe_match_plain_at_39_and_71_wide(dev, dtype, n):
+    gen = torch.Generator().manual_seed(0)
+    imp = init_implicit_net(IMP_PE, gen)
+    rng = np.random.default_rng(11)
+    ws71 = [torch.from_numpy((rng.normal(size=(a, b)) / np.sqrt(a)).astype(np.float32)).to(dev)
+            for a, b in ((71, 48), (48, 48), (48, 1))]
+    bs71 = [torch.from_numpy((0.1 * rng.normal(size=b)).astype(np.float32)).to(dev)
+            for b in (48, 48, 1)]
+    before = dict(build.launches)
+    with torch.no_grad():
+        for p in imp.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        ws, bs = effective_linear_weights(imp.to(dev))
+        w1, b1 = ws[:-1] + [ws[-1][:, :1]], bs[:-1] + [bs[-1][:1]]
+        x = _rand(dev, n, 3)
+        emb = positional_encoding(x, IMP_PE.multires)
+        assert emb.shape[1] == 39
+        _check([sdf_mlp(w1, b1, emb, IMP_PE.skip_in, dtype)],
+               [sdf_mlp_plain(w1, b1, emb, IMP_PE.skip_in, dtype)], dtype)
+        _check([sdf_mlp_pe(w1, b1, x, IMP_PE.multires, IMP_PE.skip_in, dtype)],
+               [sdf_mlp_pe_plain(w1, b1, x, IMP_PE.multires, IMP_PE.skip_in, dtype)], dtype)
+        inp = _rand(dev, n, 71, seed=12)
+        _check([sdf_mlp(ws71, bs71, inp, (), dtype)], [sdf_mlp_plain(ws71, bs71, inp, (), dtype)],
+               dtype)
+    torch.cuda.synchronize()
+    assert {k: build.launches[k] - before[k] for k in before} == {
+        **dict.fromkeys(before, 0), "sdf_mlp": 2, "sdf_mlp_pe": 1}
+
+
 # parameter gradients, sums over the rows: err <= atol + rtol * max|plain| per
 # tensor; float32 sums in another order, bf16 operands in both
 GRAD_TOL = {None: (2e-4, 1e-3), torch.bfloat16: (1e-2, 2e-2)}
@@ -149,6 +188,29 @@ def test_k2_training_forward_and_backward_match_plain(dev, dtype):
                                                    IMP.skip_in, dtype, flag)
         _check_grads([*dws, *dbs], [*dws_p, *dbs_p], dtype)
         again = sdf_mlp_with_grad_bwd(ws, bs, x, zs, *cots, IMP.multires, IMP.skip_in, dtype, flag)
+        assert all(torch.equal(a, b) for a, b in zip([*dws, *dbs], [*again[0], *again[1]]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_k2b_matches_plain_over_more_tiles_than_sms(dev, dtype):
+    """K2b at 40,000 points: 2,500 16-point tiles, more than the card has
+    SMs, so the persistent tile loop wraps (and the bf16 path's pass 2
+    splits its tiles); the bars and the same bits on two runs as above."""
+    imp, _ = _nets(dev)
+    n = 40_000
+    assert n // 16 > torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.no_grad():
+        ws, bs = effective_linear_weights(imp)
+        x = _rand(dev, n, 3, lo=-1.3, hi=1.3, seed=4)
+        args = (ws, bs, x, IMP.multires, IMP.skip_in, dtype, 0.9, 1.0, n - 100, True)
+        _, _, _, flag, zs = sdf_mlp_with_grad(*args)
+        cots = [_rand(dev, n, k, seed=5 + k) for k in (1, 32, 3)]
+        bwd = (ws, bs, x, zs, *cots, IMP.multires, IMP.skip_in, dtype, flag)
+        dws, dbs = sdf_mlp_with_grad_bwd(*bwd)
+        dws_p, dbs_p = sdf_mlp_with_grad_bwd_plain(*bwd)
+        _check_grads([*dws, *dbs], [*dws_p, *dbs_p], dtype)
+        again = sdf_mlp_with_grad_bwd(*bwd)
         assert all(torch.equal(a, b) for a, b in zip([*dws, *dbs], [*again[0], *again[1]]))
 
 

@@ -40,7 +40,15 @@ from monosdf_torch.kernels.hash_encode import encode_diff, hash_encode_bwd, hash
 from monosdf_torch.params import flatten_tree, load_jax_params, load_params_npz, params_to_tree
 from monosdf_torch.params import save_params_npz
 from monosdf_torch.train import OptimConfig, make_optimizer, make_train_step
-from torch_parity import GRID, both_models, grid_configs, jax_draws, ray_batch, torch_draws
+from torch_parity import (
+    GRID,
+    both_models,
+    grid_configs,
+    jax_draws,
+    jit_ref,
+    ray_batch,
+    torch_draws,
+)
 
 torch.set_num_threads(2)  # leave the cores to the other test workers
 
@@ -92,7 +100,7 @@ def _jax_encode_vjp(case):
         (f, t), vjp = jax.vjp(lambda e: feat_tg(e, x), emb)
         return f, t, vjp((cf, ct))[0]
 
-    return jax.jit(fn)
+    return jit_ref(fn)
 
 
 def _encode_inputs(case, n=97, seed=0):
@@ -209,7 +217,7 @@ SAMPLE_KEYS = ("z_vals", "weights", "sdf")
 def test_grid_render_matches_jax(kernels):
     jcfg, tcfg, jparams, model, _ = _setup(kernels)
     rays = ray_batch(8, seed=1)
-    jout = jax.jit(lambda r: jm.render_rays(jparams, jcfg, r, jax.random.PRNGKey(0),
+    jout = jit_ref(lambda r: jm.render_rays(jparams, jcfg, r, jax.random.PRNGKey(0),
                                             training=False))(
         {k: jnp.asarray(v) for k, v in rays.items()})
     tout = tm.render_rays(model, tcfg, {k: torch.from_numpy(v) for k, v in rays.items()})
@@ -243,7 +251,7 @@ def _jax_value_and_grad():
         losses = jl.monosdf_loss(jl.LossConfig(), out, batch["gt"], 0)
         return losses["loss"], losses
 
-    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    return jit_ref(jax.value_and_grad(loss_fn, has_aux=True))
 
 
 def _torch_batch(batch):
@@ -331,7 +339,9 @@ def test_grid_adam_groups_match_optax_flat_adam():
     ocfg = dict(learning_rate=1e-2, decay_steps=2)
     jopt = jt.make_optimizer(jt.OptimConfig(grid_mode=True, **ocfg))
     jp = jax.tree_util.tree_map(jnp.asarray, p0)
-    state = jopt.init(jp)
+    state = jit_ref(jopt.init)(jp)
+    jupdate = jit_ref(jopt.update)
+    jadd = jit_ref(lambda p, u: jax.tree_util.tree_map(lambda a, b: a + b, p, u))
     named = {k.replace("/", "."): torch.nn.Parameter(torch.from_numpy(np.copy(v)))
              for k, v in flatten_tree(p0).items()}
     adam, sched = make_optimizer(OptimConfig(grid_mode=True, **ocfg), named.items())
@@ -339,8 +349,8 @@ def test_grid_adam_groups_match_optax_flat_adam():
     for i in range(3):
         g = jax.tree_util.tree_map(lambda a: (rng.normal(size=a.shape) * 10.0 ** (i - 1))
                                    .astype(np.float32), p0)
-        upd, state = jopt.update(jax.tree_util.tree_map(jnp.asarray, g), state, jp)
-        jp = jax.tree_util.tree_map(lambda a, u: a + u, jp, upd)
+        upd, state = jupdate(jax.tree_util.tree_map(jnp.asarray, g), state, jp)
+        jp = jadd(jp, upd)
         for k, v in flatten_tree(g).items():
             named[k.replace("/", ".")].grad = torch.from_numpy(np.asarray(v))
         adam.step()

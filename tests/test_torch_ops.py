@@ -33,7 +33,7 @@ import monosdf_torch.ops.sampler as ts
 import monosdf_torch.models.fields as tf
 import monosdf_torch.models.monosdf as tm
 from monosdf_torch import params as tparams
-from torch_parity import both_models, configs, ray_batch
+from torch_parity import both_models, configs, jit_ref, ray_batch
 
 torch.set_num_threads(2)  # leave the cores to the other test workers
 
@@ -54,14 +54,14 @@ def _t(a):
 
 def _j(fn, *args):
     """fn jitted over numpy args: one XLA compile instead of one per op."""
-    return jax.jit(fn)(*jax.tree_util.tree_map(jnp.asarray, args))
+    return jit_ref(fn)(*jax.tree_util.tree_map(jnp.asarray, args))
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_init_tree():
     """(JAX config, port config, the JAX package's init_monosdf pytree as numpy)."""
     jcfg, tcfg = configs(False)
-    jparams = jax.jit(lambda k: jm.init_monosdf(k, jcfg))(jax.random.PRNGKey(0))
+    jparams = jit_ref(lambda k: jm.init_monosdf(k, jcfg))(jax.random.PRNGKey(0))
     return jcfg, tcfg, jax.tree_util.tree_map(np.asarray, jparams)
 
 
@@ -264,7 +264,7 @@ def test_sdf_feat_grad_plain(bounding):
     jparams, model, _ = both_models(jcfg, tcfg)
     x = _f32(40, 3, lo=-1.2, hi=1.2, seed=11)
     out_t = tf.sdf_feat_grad(model.implicit, timp, _t(x))
-    out_j = jax.jit(lambda p, y: jf.sdf_feat_grad(p, jimp, y))(jparams["implicit"], jnp.asarray(x))
+    out_j = jit_ref(lambda p, y: jf.sdf_feat_grad(p, jimp, y))(jparams["implicit"], jnp.asarray(x))
     for a, b in zip(out_t, out_j):
         _close(a, b)
     _close(tf.sdf_value(model.implicit, timp, _t(x)),

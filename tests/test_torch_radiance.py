@@ -29,6 +29,7 @@ from monosdf_torch.kernels.radiance_mlp import mlp_bwd_plain, mlp_plain
 from monosdf_torch.kernels.radiance_norm import radiance_norm_bwd_plain, radiance_norm_plain
 from monosdf_torch.kernels.radiance_split import radiance_split_bwd_plain, radiance_split_plain
 from monosdf_torch.params import flatten_tree, load_jax_params
+from torch_parity import jit_ref
 
 torch.set_num_threads(2)  # leave the cores to the other test workers
 
@@ -77,11 +78,11 @@ def _k3(ws, bs, dtype):
     g[:3] = 0.0  # the guarded normalisation at |g| = 0
     J = [jnp.asarray(a) for a in (g, sv, feat, code, co, cn)]
     jws, jbs = [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs]
-    o_j, n_j = jrgb._radiance_norm_fwd_pallas(jws, jbs, jnp.asarray(_pad128(g)), J[1], J[2], J[3],
-                                              DS, JDT[dtype], 64, None)
-    dws, dbs, dg, df, dc = jrgb._radiance_norm_bwd_pallas(
-        jws, jbs, jnp.asarray(_pad128(g)), J[1], J[2], J[3], J[4], jnp.asarray(_pad128(cn)), DS,
-        JDT[dtype], 64, None)
+    o_j, n_j = jit_ref(lambda ws, bs, *a: jrgb._radiance_norm_fwd_pallas(
+        ws, bs, *a, DS, JDT[dtype], 64, None))(jws, jbs, jnp.asarray(_pad128(g)), J[1], J[2], J[3])
+    dws, dbs, dg, df, dc = jit_ref(lambda ws, bs, *a: jrgb._radiance_norm_bwd_pallas(
+        ws, bs, *a, DS, JDT[dtype], 64, None))(
+        jws, jbs, jnp.asarray(_pad128(g)), J[1], J[2], J[3], J[4], jnp.asarray(_pad128(cn)))
     T = [torch.from_numpy(a) for a in (g, sv, feat, code, co, cn)]
     tws, tbs = [torch.from_numpy(w) for w in ws], [torch.from_numpy(b) for b in bs]
     o_t, n_t = radiance_norm_plain(tws, tbs, T[0], T[1], T[2], TDT[dtype], T[3])
@@ -95,9 +96,10 @@ def _k8a(ws, bs, dtype):
     J = [jnp.asarray(a) for a in (n, sv, feat, code, co)]
     jws, jbs = [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs]
     n128 = jnp.asarray(_pad128(n))
-    o_j = jrgb._radiance_fwd_pallas(jws, jbs, n128, J[1], J[2], J[3], DS, JDT[dtype], 64, None)
-    dws, dbs, dn, df, dc = jrgb._radiance_bwd_pallas(jws, jbs, n128, J[1], J[2], J[3], J[4], DS,
-                                                     JDT[dtype], 64, None)
+    o_j = jit_ref(lambda ws, bs, *a: jrgb._radiance_fwd_pallas(
+        ws, bs, *a, DS, JDT[dtype], 64, None))(jws, jbs, n128, J[1], J[2], J[3])
+    dws, dbs, dn, df, dc = jit_ref(lambda ws, bs, *a: jrgb._radiance_bwd_pallas(
+        ws, bs, *a, DS, JDT[dtype], 64, None))(jws, jbs, n128, J[1], J[2], J[3], J[4])
     T = [torch.from_numpy(a) for a in (n, sv, feat, code, co)]
     tws, tbs = [torch.from_numpy(w) for w in ws], [torch.from_numpy(b) for b in bs]
     o_t = radiance_split_plain(tws, tbs, T[0], T[1], T[2], T[3], TDT[dtype])
@@ -109,9 +111,11 @@ def _k8b(ws, bs, dtype):
     d0 = ws[0].shape[0]
     h0, co = _rng_arrays(3, (N, d0), (N, 3))
     jws, jbs = [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs]
-    o_j = jrgb._fwd_pallas(jws, jbs, jnp.asarray(h0), JDT[dtype], 64, None)
-    dws, dbs, dh0 = jrgb._bwd_pallas(jws, jbs, jnp.asarray(h0), jnp.asarray(co), JDT[dtype], 64,
-                                     None)
+    o_j = jit_ref(lambda ws, bs, h: jrgb._fwd_pallas(ws, bs, h, JDT[dtype], 64, None))(
+        jws, jbs, jnp.asarray(h0))
+    dws, dbs, dh0 = jit_ref(lambda ws, bs, h, c: jrgb._bwd_pallas(ws, bs, h, c, JDT[dtype], 64,
+                                                                  None))(
+        jws, jbs, jnp.asarray(h0), jnp.asarray(co))
     tws, tbs = [torch.from_numpy(w) for w in ws], [torch.from_numpy(b) for b in bs]
     o_t = mlp_plain(tws, tbs, torch.from_numpy(h0), TDT[dtype])
     b_t = mlp_bwd_plain(tws, tbs, torch.from_numpy(h0), torch.from_numpy(co), TDT[dtype])
@@ -174,7 +178,7 @@ def test_rendering_apply_pallas_nerf_matches_jax_through_autograd():
                                         jnp.asarray(vd), f, c)
         return jnp.mean((out["rgb"] - 0.4) ** 2 * w), out["rgb"]
 
-    (_, rgb_j), gj = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True))(
+    (_, rgb_j), gj = jit_ref(jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True))(
         jparams, jnp.asarray(feat), jnp.asarray(code))
     ins = [torch.from_numpy(a).requires_grad_() for a in (feat, code)]
     before = dict(build.launches)

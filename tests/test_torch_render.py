@@ -22,7 +22,7 @@ import monosdf_tpu.models.monosdf as jm
 import monosdf_torch.models.monosdf as tm
 from monosdf_torch.cli import eval as teval
 from monosdf_torch.data.synthetic import make_synthetic_sphere_scene
-from torch_parity import both_models, configs, ray_batch
+from torch_parity import both_models, configs, jit_ref, ray_batch
 
 torch.set_num_threads(2)  # leave the cores to the other test workers
 
@@ -33,11 +33,14 @@ ITERS = {"max_total_iters": 2}
 
 @functools.lru_cache(maxsize=None)
 def _setup(kernels, dtype):
-    """(jitted JAX render, JAX params, port model, port config)."""
-    jcfg, tcfg = configs(kernels, dtype, sampler=ITERS)
+    """(jitted JAX render, JAX params, port model, port config); ``kernels``
+    "pe": the kernel backends with the sweeps' embedding inside the kernel
+    (sweep_pe_in_kernel)."""
+    pe = {"sweep_pe_in_kernel": True} if kernels == "pe" else {}
+    jcfg, tcfg = configs(bool(kernels), dtype, sampler=ITERS, **pe)
     jparams, model, _ = both_models(jcfg, tcfg)
 
-    @jax.jit
+    @jit_ref
     def jrender(r):
         return jm.render_rays(jparams, jcfg, r, jax.random.PRNGKey(0), training=False)
 
@@ -53,7 +56,7 @@ def _render_both(kernels, dtype="float32", n_rays=8):
     return {k: np.asarray(jout[k]) for k in keys}, {k: tout[k].numpy() for k in keys}
 
 
-@pytest.mark.parametrize("kernels", [True, False], ids=["pallas", "jnp"])
+@pytest.mark.parametrize("kernels", [True, False, "pe"], ids=["pallas", "jnp", "pallas-pe"])
 def test_render_rays_f32_matches_jax(kernels):
     j, t = _render_both(kernels)
     for k in OUT_KEYS:

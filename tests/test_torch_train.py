@@ -31,7 +31,7 @@ import monosdf_torch.ops.sampler as ts
 from monosdf_torch.cli import train as ttrain
 from monosdf_torch.params import flatten_tree, load_params_npz
 from monosdf_torch.train import OptimConfig, make_optimizer, make_train_step
-from torch_parity import both_models, configs, jax_draws, ray_batch, torch_draws
+from torch_parity import both_models, configs, jax_draws, jit_ref, ray_batch, torch_draws
 
 torch.set_num_threads(2)  # leave the cores to the other test workers
 
@@ -119,7 +119,7 @@ def test_sampler_training_mode_with_jax_draws():
             lambda pts: jm.sdf_value(p["implicit"], jcfg.implicit, pts)[..., 0],
             r["rays_o"], r["rays_d"], beta0, jcfg.sampler, k_sampler_key, True)
 
-    zj, ej = jax.jit(jsample)(jparams, {k: jnp.asarray(v) for k, v in rays.items()})
+    zj, ej = jit_ref(jsample)(jparams, {k: jnp.asarray(v) for k, v in rays.items()})
     rt = {k: torch.from_numpy(v) for k, v in rays.items()}
     beta0 = torch.abs(model.density.beta.detach()) + tcfg.beta_min
     zt, et = ts.error_bound_z_vals(
@@ -173,8 +173,8 @@ def test_monosdf_loss_value_and_gradients(cfg_kw, step):
         return jl.monosdf_loss(jl.LossConfig(**cfg_kw), {**outs, **o}, gt, step)
 
     jo = {k: jnp.asarray(outs[k]) for k in diff}
-    jv = jax.jit(jfun)(jo)
-    jg = jax.jit(jax.grad(lambda o: jfun(o)["loss"]))(jo)
+    jv = jit_ref(jfun)(jo)
+    jg = jit_ref(jax.grad(lambda o: jfun(o)["loss"]))(jo)
     to = {k: torch.from_numpy(v).requires_grad_(k in diff) for k, v in outs.items()}
     tv = tl.monosdf_loss(tl.LossConfig(**cfg_kw), to, {k: torch.from_numpy(v) for k, v in
                                                        gt.items()}, step)
@@ -200,7 +200,7 @@ def test_adam_and_lr_schedule_match_optax_over_three_steps():
     jopt = jt.make_optimizer(jt.OptimConfig(**ocfg))
     jp = jax.tree_util.tree_map(jnp.asarray, p0)
     state = jopt.init(jp)
-    jupdate = jax.jit(jopt.update)
+    jupdate = jit_ref(jopt.update)
     tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in p0.items()}
     adam, sched = make_optimizer(OptimConfig(**ocfg), tp.items())
     for g in grads:
@@ -241,7 +241,12 @@ def _jax_value_and_grad(case):
         losses["psnr"] = -10.0 * jnp.log(mse) / jnp.log(10.0)
         return losses["loss"], losses
 
-    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    return jit_ref(jax.value_and_grad(loss_fn, has_aux=True))
+
+
+# the JAX optimizer of the step tests, its update and apply jitted once
+JOPT = jt.make_optimizer(jt.OptimConfig())
+_jinit, _jupdate, _japply = jit_ref(JOPT.init), jit_ref(JOPT.update), jit_ref(optax.apply_updates)
 
 
 def _jax_steps(case, jparams, batches, keys):
@@ -251,13 +256,11 @@ def _jax_steps(case, jparams, batches, keys):
     value_and_grad the step test compiles: the parameters after the steps,
     and each step's metrics."""
     vg = _jax_value_and_grad(case)
-    jopt = jt.make_optimizer(jt.OptimConfig())
-    update = jax.jit(jopt.update)
-    params, opt_state, metrics = jparams, jopt.init(jparams), []
+    params, opt_state, metrics = jparams, _jinit(jparams), []
     for i, (b, k) in enumerate(zip(batches, keys)):
         (_, m), grads = vg(params, _to_jax(b), k, jnp.int32(i))
-        updates, opt_state = update(grads, opt_state, params)
-        params = optax.apply_updates(params, updates)
+        updates, opt_state = _jupdate(grads, opt_state, params)
+        params = _japply(params, updates)
         metrics.append({kk: float(v) for kk, v in m.items()})
     return params, metrics
 
@@ -277,9 +280,8 @@ def test_training_step_matches_jax(case):
     batch = _batch(seed=2)
     key = jax.random.PRNGKey(7)
     (_, mj), gj = _jax_value_and_grad(case)(jparams, _to_jax(batch), key, jnp.int32(0))
-    jopt = jt.make_optimizer(jt.OptimConfig())
-    upd, _ = jopt.update(gj, jopt.init(jparams), jparams)
-    pj = _flat_jax(jax.tree_util.tree_map(lambda a, u: a + u, jparams, upd))
+    upd, _ = _jupdate(gj, _jinit(jparams), jparams)
+    pj = _flat_jax(_japply(jparams, upd))
 
     draws = torch_draws(jax_draws(key, N_RAYS, jcfg))
     tb = _to_torch(batch)
@@ -310,13 +312,26 @@ def test_training_step_matches_jax(case):
 
 def test_three_step_loss_trajectory_matches_jax():
     """Three steps of the JAX training step and of the port's on distinct
-    batches and draws, kernel backends: the losses follow JAX's at 1e-4
+    batches and draws, kernel backends (the JAX step checked against
+    jt.make_train_step first): the losses follow JAX's at 1e-4
     (each step starts from parameters that agree to float32 rounding of the
     update), and so do the parameters after them."""
     jcfg, tcfg, jparams, tree = _setup("pallas")
     batches = [_batch(seed=10 + i) for i in range(3)]
     keys = [jax.random.PRNGKey(20 + i) for i in range(3)]
     jp_after, mj = _jax_steps("pallas", jparams, batches, keys)
+    # the reference is a copy of make_train_step's body: its first step is
+    # jt.make_train_step's own at this shape (loss to 1e-6, parameters to
+    # 1e-7 of the lr-sized move: the two programs fuse differently)
+    state, m0 = jit_ref(jt.make_train_step(jcfg, jl.LossConfig(), JOPT))(
+        jt.init_train_state(jparams, JOPT), _to_jax(batches[0]), keys[0])
+    jp1, mj1 = _jax_steps("pallas", jparams, batches[:1], keys[:1])
+    assert int(state.step) == 1
+    np.testing.assert_allclose(float(m0["loss"]), mj1[0]["loss"], rtol=1e-6)
+    p_ref, p_copy = _flat_jax(state.params), _flat_jax(jp1)
+    assert p_ref.keys() == p_copy.keys()
+    for n in p_ref:
+        np.testing.assert_allclose(p_copy[n], p_ref[n], atol=1e-7, rtol=0, err_msg=n)
     model = _model(tcfg, tree)
     step = make_train_step(tcfg, tl.LossConfig(), make_optimizer(OptimConfig(),
                                                                   model.named_parameters()))

@@ -86,6 +86,21 @@ def grid_configs(kernels: bool, dtype: str = "float32", sampler=None, grid=None)
     return build(jf, js, jm, jh), build(tf, ts, tm, th)
 
 
+# The JAX references of the port's tests each compile once and run on tiny
+# inputs, so the compile is most of their CPU time; XLA's backend at
+# optimisation level 0 takes about a third less CPU for it (the float32
+# results are the same functions, equal up to rounding; the tolerances are
+# stated at each test).
+REF_COMPILER_OPTIONS = {"xla_backend_optimization_level": 0}
+
+
+def jit_ref(fn=None, **kw):
+    """``jax.jit`` for a JAX reference, compiled with REF_COMPILER_OPTIONS."""
+    if fn is None:
+        return functools.partial(jit_ref, **kw)
+    return jax.jit(fn, compiler_options=REF_COMPILER_OPTIONS, **kw)
+
+
 @functools.lru_cache(maxsize=None)
 def _init_tree(implicit, rendering, seed: int, noise: float) -> dict:
     tcfg = tm.MonoSDFConfig(implicit=implicit, rendering=rendering)
@@ -126,21 +141,27 @@ def jax_draws(key, R: int, cfg) -> dict:
     """The random draws of monosdf_tpu render_rays(training=True) under
     ``key`` (monosdf.py:135, :219-226; sampler.py:373, :129, :337, :352,
     :434), as numpy, under the names the port takes them."""
+    sc = cfg.sampler
+    d = _jax_draws(key, R, sc.N_samples_eval, sc.N_samples, sc.N_samples_extra,
+                   sc.N_samples_eval * sc.max_total_iters, cfg.scene_bounding_sphere)
+    return {k: np.array(v) for k, v in d.items()}
+
+
+@jit_ref(static_argnums=(1, 2, 3, 4, 5, 6))
+def _jax_draws(key, R, n_eval, n_samples, n_extra, n_buf, bs):
+    """jax_draws' key tree and draws, jitted (one compile per shape; the
+    same bits as run op by op)."""
     k_sampler, k_uni, k_nei = jax.random.split(key, 3)
     k_init, k_final, k_extra, k_eik = jax.random.split(k_sampler, 4)
-    sc = cfg.sampler
-    n_buf = sc.N_samples_eval * sc.max_total_iters
-    bs = cfg.scene_bounding_sphere
-    d = {
-        "t_rand": jax.random.uniform(k_init, (R, sc.N_samples_eval), dtype=jnp.float32),
-        "u_final": jax.random.uniform(k_final, (R, sc.N_samples), dtype=jnp.float32),
-        "extra_idx": jax.random.permutation(k_extra, n_buf)[: sc.N_samples_extra],
-        "eik_idx": jax.random.randint(k_eik, (R, 1), 0, sc.N_samples + sc.N_samples_extra + 2),
+    return {
+        "t_rand": jax.random.uniform(k_init, (R, n_eval), dtype=jnp.float32),
+        "u_final": jax.random.uniform(k_final, (R, n_samples), dtype=jnp.float32),
+        "extra_idx": jax.random.permutation(k_extra, n_buf)[:n_extra],
+        "eik_idx": jax.random.randint(k_eik, (R, 1), 0, n_samples + n_extra + 2),
         "eik_uniform": jax.random.uniform(k_uni, (R, 3), minval=-bs, maxval=bs,
                                           dtype=jnp.float32),
         "eik_neigh": jax.random.uniform(k_nei, (2 * R, 3), dtype=jnp.float32),
     }
-    return {k: np.array(v) for k, v in d.items()}
 
 
 def torch_draws(d: dict) -> dict:
