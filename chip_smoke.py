@@ -12,7 +12,9 @@ through K3 and through K8a. Phases (any failure exits non-zero):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the kernels' nineteen libraries from monosdf_torch/csrc with nvcc
    for sm_90a, one nvcc per source, all at once (twenty kernels: K1-PE is
-   K1's library on raw points, counted on its own);
+   K1's library on raw points, counted on its own); count the HGMMA
+   (wgmma) instructions in the SASS of the tensor-core kernels' libraries
+   (cuobjdump), failing on none;
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, and time kernel and plain version (CUDA events):
    the forwards at the shapes of one 1024-ray render chunk of the bench's
@@ -147,6 +149,8 @@ PATHS = {
     "codes_split": ("_codes_split", PER_CHUNK_SPLIT, PER_STEP_SPLIT),
 }
 SWEEPS = ("sdf_mlp", "sdf_mlp_pe", "sampler_machinery")  # the sampler's kernels
+# the libraries whose bf16 kernels run on the tensor cores (wgmma: HGMMA in SASS)
+TENSOR_CORE_LIBS = ("sdf_mlp", "sdf_grad", "sdf_grad_bwd", "sdf_grad_grid_bwd")
 WARMUP_STEPS, TIMED_STEPS = 3, 20
 # stated tolerances, kernel vs plain version on the card: err <= atol + rtol * max|plain|;
 # bf16: a rounding that lands on the neighbouring bf16 value (ulp 2^-7 at 1)
@@ -248,6 +252,22 @@ def mlp_flops(ws, rows: int) -> float:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def hgmma_counts() -> dict:
+    """The HGMMA instructions in the SASS of each tensor-core library
+    (cuobjdump beside nvcc)."""
+    from pathlib import Path
+
+    from monosdf_torch.kernels import build
+
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    counts = {}
+    for name in TENSOR_CORE_LIBS:
+        sass = subprocess.run([str(tool), "-sass", str(build.lib_path(name))], check=True,
+                              capture_output=True, text=True).stdout
+        counts[name] = sum("HGMMA" in line for line in sass.splitlines())
+    return counts
 
 
 def perturbed_model(cfg, device, scale: float = 0.01):
@@ -1177,8 +1197,10 @@ def _profile(fn, reps: int, what: str) -> dict:
     busy = sum(per_name.values())
     if busy <= 0:
         fail(f"torch.profiler recorded no device time ({what})")
-    # reduce_partials: the second launch of both backward kernels (their
-    # blocks' dW partials summed), counted on its own
+    # reduce_partials: the second launch of the float32 backward kernels
+    # (their blocks' dW partials summed), counted on its own; the bf16
+    # backward passes (*_kernel_ct, *_kernel_dw, *_kernel_sums) count under
+    # their kernel
     names = [f"{n}_kernel" for n in build.SOURCES if n not in PROBE_SITES] + ["reduce_partials"]
     kern = {n.removesuffix("_kernel"): sum(v for k, v in per_name.items() if n in k)
             for n in names}
@@ -1186,9 +1208,11 @@ def _profile(fn, reps: int, what: str) -> dict:
     for k, v in per_name.items():
         if not any(n in k for n in names):
             other[k[:60]] = other.get(k[:60], 0.0) + v
-    # the tensor-core kernels' parts: K1's bf16 kernel, K2b's two passes and their sum
-    parts = ("sdf_mlp_kernel_tc", "sdf_grad_bwd_kernel_ct", "sdf_grad_bwd_kernel_dw",
-             "reduce_partials_tc")
+    # the tensor-core kernels' parts: K1's and K2f's bf16 kernels, K2b's and
+    # K7b's two passes and their sums
+    parts = ("sdf_mlp_kernel_tc", "sdf_grad_kernel_tc",
+             *(f"{n}_kernel_{p}" for n in ("sdf_grad_bwd", "sdf_grad_grid_bwd")
+               for p in ("ct", "dw", "sums")))
     kern_parts = {n: sum(v for k, v in per_name.items() if n in k) for n in parts}
     return {"ms": ms, "device_busy_ms": busy, "busy_share": busy / ms, "kernels_ms": kern,
             "tensor_core_parts_ms": kern_parts,
@@ -1519,6 +1543,10 @@ def main(argv):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    hgmma = hgmma_counts()
+    print(f"HGMMA instructions in SASS: {json.dumps(hgmma)}", flush=True)
+    if not all(hgmma.values()):
+        fail(f"a tensor-core library has no HGMMA in its SASS: {hgmma}")
 
     cfg = bench_mlp_config("bfloat16")
     model = perturbed_model(cfg, dev)
@@ -1528,6 +1556,9 @@ def main(argv):
     torch.cuda.empty_cache()
     grid_kernel_checks(dev, results)
     radiance_kernel_checks(dev, results)
+    for name in build.KERNELS:
+        if build.SOURCE_OF[name] in hgmma:
+            results[name]["sass_hgmma"] = hgmma[build.SOURCE_OF[name]]
     if "--kernels" in argv:
         probes_phase(dev, results)
         print(json.dumps(results))

@@ -21,21 +21,34 @@
 //     ct_z = ct_h*s + (sum_k ct_t_k*u_k)*100 s(1-s),  ct_u_k = s*ct_t_k;
 //   dW_l += A_l^T CT, db_l += sum of CT's primal rows (float32, before CT is
 //     rounded to the operand type), ct_A = CT W_l^T;
-// and at layer 0 ct_A is da0. No skip, no clamp. The grid is persistent (one
-// block per SM); each block adds its tiles' dW into its own float32 partial
-// and reduce_partials sums the partials in block order, so two runs give the
-// same bits.
+// and at layer 0 ct_A is da0. No skip, no clamp.
 //
-// Limits: d0 <= 80 (LD0), hidden widths <= 256 (the 2x256 trunk fits; no
-// depth limit from shared memory, which holds one layer at a time). Bound on
-// the card: operations (about 1.7e11 FLOP at the bench's 104,448 points,
-// twice the forward's); this first version runs float32 FMAs on the CUDA
-// cores.
+// Limits: d0 <= 80 (LD0), hidden widths <= 256. Bound on the card: bytes at
+// the bench's 104,448 points (a0 read and da0 written, 2 x 119 MB float32,
+// and 0.43 GB of bf16 Z read: 0.22 ms at 3.35 TB/s) against about 1.7e11
+// FLOP (0.17 ms at 989 TFLOP/s bf16).
+//
+// bf16 (the grid training step's path): K2b's tensor-core passes
+// (sdf_grad_bwd_tc.cuh, included below; this library's copy has its own
+// kernel names and launch count) with the layer-0 input a0 read from device
+// memory and rounded to bf16 in place of the embedding, no skip and no flag,
+// and pass 1 running one more product, layer 0's ct_A = CT_0 W_0^T (n = 71,
+// padded to the product's 256 columns), written to da0 in float32. The
+// trunk's three layers cost three pass-1 products per tile where K2b runs
+// nine; pass 1 stays latency-bound as K2b's (its gate step, stores and
+// barriers in series with the products). ~1.2 GB of bf16 CT and A scratch.
+//
+// float32 (the check path): the SIMT kernel below, float32 FMAs on the CUDA
+// cores. Each block adds its tiles' dW into its own float32 partial in
+// device memory and reduce_partials sums the partials in block order, so
+// two runs give the same bits.
 #include "common.cuh"
 
 using namespace mk;
 
-template <bool BF16>
+#define BWD_TC_NAME(part) sdf_grad_grid_bwd_##part
+#include "sdf_grad_bwd_tc.cuh"
+
 __global__ void __launch_bounds__(THREADS)
 sdf_grad_grid_bwd_kernel(const float* __restrict__ a0, int N, int d0, MlpDesc d,
                          const float* __restrict__ P, const float* __restrict__ PT,
@@ -43,6 +56,7 @@ sdf_grad_grid_bwd_kernel(const float* __restrict__ a0, int N, int d0, MlpDesc d,
                          const void* __restrict__ c_sdf, const void* __restrict__ c_feat,
                          const void* __restrict__ c_grad, float* __restrict__ work, int n_params,
                          float* __restrict__ da0) {
+  constexpr bool BF16 = false;  // float32 only: bf16 takes sdf_grad_bwd_tc.cuh's passes
   extern __shared__ __align__(16) float smem[];
   float* X0 = smem;
   float* bufA = X0 + TILE_M * LD0;
@@ -151,25 +165,22 @@ sdf_grad_grid_bwd_kernel(const float* __restrict__ a0, int N, int d0, MlpDesc d,
   }
 }
 
+// float32: the SIMT kernel on `grid` persistent blocks (work: grid x
+// n_params floats), then the ordered sums into out. bf16 goes through
+// sdf_grad_bwd_tc_launch (sdf_grad_bwd_tc.cuh) with a0 and da0.
 extern "C" int sdf_grad_grid_bwd_launch(const float* a0, int N, int d0, const int* desc,
                                         const float* P, const float* PT, void* const* z_in,
                                         const void* c_sdf, const void* c_feat,
                                         const void* c_grad, float* work, int grid, int n_params,
-                                        float* out, float* da0, int bf16, void* stream) {
+                                        float* out, float* da0, void* stream) {
   const MlpDesc d = desc_from(desc);
   ZPtrs z;
   for (int l = 0; l < MK_MAX_LAYERS; ++l) z.p[l] = z_in[l];
   const size_t smem = MLP_SMEM_FLOATS * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    cudaFuncSetAttribute(sdf_grad_grid_bwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    sdf_grad_grid_bwd_kernel<true><<<grid, THREADS, smem, s>>>(a0, N, d0, d, P, PT, z, c_sdf, c_feat,
-                                                               c_grad, work, n_params, da0);
-  } else {
-    cudaFuncSetAttribute(sdf_grad_grid_bwd_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    sdf_grad_grid_bwd_kernel<false><<<grid, THREADS, smem, s>>>(a0, N, d0, d, P, PT, z, c_sdf, c_feat,
-                                                                c_grad, work, n_params, da0);
-  }
+  cudaFuncSetAttribute(sdf_grad_grid_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  sdf_grad_grid_bwd_kernel<<<grid, THREADS, smem, s>>>(a0, N, d0, d, P, PT, z, c_sdf, c_feat, c_grad,
+                                                       work, n_params, da0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   reduce_partials<<<(n_params + THREADS - 1) / THREADS, THREADS, 0, s>>>(work, grid, n_params, out);

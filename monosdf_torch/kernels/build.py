@@ -61,7 +61,8 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """The built library of ``csrc/<name>.cu`` (named by a hash of its sources)."""
     h = hashlib.sha256()
     for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
@@ -70,7 +71,7 @@ def _lib_path(name: str) -> Path:
 
 
 def _start(name: str):
-    out = _lib_path(name)
+    out = lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -103,7 +104,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         build_all((name,))
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(lib_path(name)))
         lib.error_string.restype = ctypes.c_char_p
         lib.error_string.argtypes = [ctypes.c_int]
         _libs[name] = lib

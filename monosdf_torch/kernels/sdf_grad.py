@@ -30,11 +30,21 @@ with s = sigmoid(100 z), the cotangents cast to the operand dtype at entry,
 the SDF and gradient cotangents gated by ``flag``, and bf16 operands with
 float32 sums under mixed precision.
 
-Bound on the card: operations (forward about 4.4e11 FLOP, backward about
-twice that, at the bench's 104,448 training points, against ~1.7 GB of bf16
-Z written and read back). The forward and the float32 backward compute with
-float32 FMAs on the CUDA cores. The bf16 backward runs on the tensor cores
-in two passes (``_bwd_tc``, csrc/sdf_grad_bwd.cu): the tile loop stores each
+Bound on the card: the forward's Z (~1.7 GB of bf16 at the bench's
+104,448 training points) makes the training variant byte-bound; the render
+chunk and the backward are operation-bound (forward about 4.4e11 FLOP,
+backward about twice that). The training variant (``save_z``, bf16) runs
+on the tensor cores (csrc/sdf_grad.cu ``sdf_grad_kernel_tc``): K1's
+persistent two-warpgroup kernel with three more rows per point, each
+warpgroup's m64 tile 16 points in the stacked order, the weights packed
+once per call (``pack_fwd``: K1's packing and the last layer's feature
+columns). The render chunk (no Z) and float32 stay on the SIMT kernel,
+whose float32 FMA chains run in the plain version's order: the renders are
+held to the plain version at fixed samples, and the tangent rows turn any
+other summation order's float32 differences in z into gradient and normal
+differences 100x larger through sigmoid(100 z) (``PERF.md``). The backward
+runs in two passes on the tensor cores (``bwd_tc``,
+csrc/sdf_grad_bwd_tc.cuh, shared with K7b): the tile loop stores each
 layer's bf16 CT and input A, 64 rows a block in ``wgmma``'s operand layout
 (~3.7 GB of scratch at the bench's shapes), and a second kernel sums
 ``A^T CT`` over all rows, so no dW partial goes through device memory per
@@ -49,7 +59,7 @@ import torch
 
 from ..nn import matmul_rounded, round_to
 from . import build
-from .sdf_mlp import SQRT2, WG_N, check_mlp_dims, pack_wgmma_b
+from .sdf_mlp import K1_KC, SQRT2, WG_N, check_mlp_dims, pack_wgmma_b
 
 NAME = "sdf_grad"
 BWD_NAME = "sdf_grad_bwd"
@@ -198,8 +208,9 @@ def _lib():
     lib = build.load(NAME)
     lib.sdf_grad_launch.restype = ctypes.c_int
     lib.sdf_grad_launch.argtypes = [
-        _c, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), _c, ctypes.c_float,
-        ctypes.c_float, ctypes.c_int, _c, _c, _c, _c, ctypes.POINTER(_c), ctypes.c_int, _c,
+        _c, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), _c, _c,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_float, ctypes.c_int, _c, _c, _c, _c,
+        ctypes.POINTER(_c), ctypes.c_int, ctypes.c_int, _c,
     ]
     return lib
 
@@ -211,10 +222,18 @@ def _bwd_lib():
         _c, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), _c, _c, ctypes.POINTER(_c),
         _c, _c, _c, _c, _c, ctypes.c_int, ctypes.c_int, _c, _c,
     ]
+    return lib
+
+
+def tc_bwd_lib(name: str):
+    """The library ``name`` (K2b's or K7b's) with the tensor-core backward of
+    csrc/sdf_grad_bwd_tc.cuh bound."""
+    lib = build.load(name)
     _i, _pi, _pc = ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(_c)
     lib.sdf_grad_bwd_tc_launch.restype = ctypes.c_int
     lib.sdf_grad_bwd_tc_launch.argtypes = [
-        _c, _i, _i, _pi, _c, _pi, _pc, _pc, _pc, _pi, _c, _c, _c, _c, _c, _i, _i, _c, _i, _i, _c, _c,
+        _c, _i, _i, _c, _i, _c, _pi, _c, _pi, _pc, _pc, _pc, _pi, _c, _c, _c, _c, _c, _i, _i, _c, _i,
+        _i, _c, _c,
     ]
     return lib
 
@@ -230,24 +249,56 @@ def _ints(vals):
     return (ctypes.c_int * build.MAX_LAYERS)(*vals, *[0] * (build.MAX_LAYERS - len(vals)))
 
 
-BWD_KC = 32     # csrc/sdf_grad_bwd.cu TB_KC: W rows per pass-1 ring stage
-BWD_SMALL = 2816  # csrc/sdf_grad_bwd.cu MAX_SMALL
+def check_tc_widths(ws):
+    """Raise unless every layer input fits the tensor-core kernels' 256-wide
+    activation tiles (the bench's MLP: 256 at most, the skip layer's 217 +
+    39 included)."""
+    if any(w.shape[0] > WG_N for w in ws):
+        raise ValueError(f"the tensor-core kernels take layer inputs up to {WG_N} wide")
+
+
+def pack_fwd(ws):
+    """K2f's bf16 B operands (csrc/sdf_grad.cu): the hidden layers' W_l as
+    K1 packs them (``K1_KC`` input rows a ring stage), then the last layer's
+    feature columns W_{L-1}[:, 1:]; and each one's element offset, by layer."""
+    return pack_wgmma_b([*ws[:-1], ws[-1][:, 1:]], K1_KC)
+
+
+def pack_bwd(ws, layer0: bool = False):
+    """K2b's (and K7b's) pass-1 B operands (csrc/sdf_grad_bwd_tc.cuh): W_l
+    without the embedding's rows, transposed, for each layer l > 0 (its K:
+    layer l's outputs, its N: layer l - 1's), ``BWD_KC`` rows a ring stage;
+    with ``layer0`` also W_0^T (N: the layer-0 input, zero-padded to 256),
+    for the layer-0 input's cotangent. Returns the buffer and the offsets by
+    layer (0 where a layer has none)."""
+    first = 0 if layer0 else 1
+    mats = [ws[l][:ws[l - 1].shape[1]].t() if l > 0 else ws[0].t() for l in range(first, len(ws))]
+    wb, offs = pack_wgmma_b(mats, BWD_KC)
+    return wb, [0] * first + offs
+
+
+BWD_KC = 32     # csrc/sdf_grad_bwd_tc.cuh TB_KC: W rows per pass-1 ring stage
+BWD_SMALL = 2816  # csrc/sdf_grad_bwd_tc.cuh MAX_SMALL
 TILE_ROWS = 64  # rows of a 16-point tile: the primal rows, then the three tangents'
 
 
-def _bwd_tc(ws, x, zs, cs, cf, cg, flag, multires, desc, out):
-    """K2b's bf16 path (csrc/sdf_grad_bwd.cu): pass 1 stores every layer's
-    CT and input A in wgmma's layout, 64 rows a block; pass 2 sums A^T CT
-    over the blocks on the tensor cores; partials are summed in order."""
-    dev = x.device
-    N, L = x.shape[0], len(ws)
-    if any(w.shape[0] > 256 for w in ws):
-        raise ValueError("the tensor-core backward takes layer inputs up to 256 wide")
+def bwd_tc(name, ws, N, zs, cs, cf, cg, desc, out, x=None, multires=-1, flag=None, a0=None,
+           da0=None):
+    """The tensor-core backward (csrc/sdf_grad_bwd_tc.cuh) in library
+    ``name``: K2b over the raw points x (the embedding of ``multires``
+    frequencies computed in-kernel), or K7b over the given layer-0 input a0
+    (4, N, d0) float32, whose cotangent it writes into da0. Pass 1 stores
+    every layer's CT and input A in wgmma's layout, 64 rows a block; pass 2
+    sums A^T CT over the blocks on the tensor cores; partials are summed in
+    order. The parameter gradients go into out (``build.pack_mlp``'s
+    layout)."""
+    dev = zs[0].device
+    L = len(ws)
+    check_tc_widths(ws)
     n_small = sum(w.shape[1] for w in ws) + ws[-1].shape[0]
     if n_small > BWD_SMALL:
         raise ValueError(f"{n_small} bias and SDF-column gradients > {BWD_SMALL}")
-    # pass 1's B operands: W_l[:nprev]^T (its K: layer l's outputs)
-    wb, offs = pack_wgmma_b([ws[l][:ws[l - 1].shape[1]].t() for l in range(1, L)], BWD_KC)
+    wb, offs = pack_bwd(ws, layer0=a0 is not None)
     n_tiles = -(-N // 16)
     kap = [-(-w.shape[0] // 128) * 128 for w in ws]
     blk = n_tiles * TILE_ROWS
@@ -267,14 +318,15 @@ def _bwd_tc(ws, x, zs, cs, cf, cg, flag, multires, desc, out):
     part1 = torch.empty(grid1, n_small, dtype=torch.float32, device=dev)
     part2 = torch.empty(blocks * splits, 128, WG_N, dtype=torch.float32, device=dev)
     n_w = sum(w.shape[0] * w.shape[1] for w in ws) - ws[-1].shape[0]
-    lib = _bwd_lib()
+    opt = lambda t: build.ptr(t) if t is not None else None
+    lib = tc_bwd_lib(name)
     err = lib.sdf_grad_bwd_tc_launch(
-        build.ptr(x), N, multires, desc, build.ptr(wb), _ints([0] + offs), _z_ptrs(zs), ct_ptrs,
-        a_ptrs, _ints(kap), build.ptr(cs), build.ptr(cf), build.ptr(cg),
-        build.ptr(flag) if flag is not None else None, build.ptr(part1), grid1, n_small,
+        opt(x), N, multires, opt(a0), a0.shape[2] if a0 is not None else 0, opt(da0), desc,
+        build.ptr(wb), _ints(offs), _z_ptrs(zs), ct_ptrs, a_ptrs, _ints(kap), build.ptr(cs),
+        build.ptr(cf), build.ptr(cg), opt(flag), build.ptr(part1), grid1, n_small,
         build.ptr(part2), splits, max(n_small, n_w), build.ptr(out), build.stream_ptr(dev),
     )
-    build.check(lib, BWD_NAME, err)
+    build.check(lib, name, err)
 
 
 def _forward(ws, bs, x, multires, skip_in, dtype, bounding_sphere, sphere_scale, clamp_rows,
@@ -293,6 +345,10 @@ def _forward(ws, bs, x, multires, skip_in, dtype, bounding_sphere, sphere_scale,
     check_mlp_dims(ws, tuple(skip_in), d0, last_max=257)
     P, desc = build.pack_mlp(ws, bs, tuple(skip_in))
     build.require(P, "weights", torch.float32, P.shape, dev)
+    wb, wb_off = None, [0]
+    if dtype is not None and save_z:  # the training variant: the tensor-core kernel
+        check_tc_widths(ws)
+        wb, wb_off = pack_fwd(ws)
     act = dtype or torch.float32
     sdf = torch.empty(N, 1, dtype=torch.float32, device=dev)
     feat = torch.empty(N, F, dtype=act, device=dev)
@@ -303,10 +359,11 @@ def _forward(ws, bs, x, multires, skip_in, dtype, bounding_sphere, sphere_scale,
     if N > 0:
         lib = _lib()
         err = lib.sdf_grad_launch(
-            build.ptr(x), N, multires, desc, build.ptr(P), float(bounding_sphere),
+            build.ptr(x), N, multires, desc, build.ptr(P),
+            build.ptr(wb) if wb is not None else None, _ints(wb_off), float(bounding_sphere),
             float(sphere_scale), int(clamp_rows), build.ptr(sdf), build.ptr(feat),
             build.ptr(grad), build.ptr(flag) if flag is not None else None, _z_ptrs(zs),
-            int(dtype is not None), build.stream_ptr(dev),
+            int(dtype is not None), build.num_sms(dev), build.stream_ptr(dev),
         )
         build.check(lib, NAME, err)
         build.launches[NAME] += 1
@@ -353,7 +410,7 @@ def sdf_mlp_with_grad_bwd(ws, bs, x, zs, c_sdf, c_feat, c_grad, multires: int, s
     n_params = P.numel()
     out = torch.empty(n_params, dtype=torch.float32, device=dev)
     if N > 0 and dtype is not None:
-        _bwd_tc(ws, x, zs, cs, cf, cg, flag, multires, desc, out)
+        bwd_tc(BWD_NAME, ws, N, zs, cs, cf, cg, desc, out, x=x, multires=multires, flag=flag)
         build.launches[BWD_NAME] += 1
     elif N > 0:
         # W^T of every layer at the same offsets, for ct_A = CT W^T

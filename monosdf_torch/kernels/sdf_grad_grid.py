@@ -17,9 +17,13 @@ at the operand dtype. The backward returns the parameter gradients and
 da0 (4, N, d0) float32, the cotangent of a0, which the autograd Function
 hands back to the encode (K5 takes its grid-feature columns).
 
-Bound on the card: operations (forward about 8.4e10 FLOP at the bench's
-104,448 training points, backward about twice that). These first versions
-compute with float32 FMAs on the CUDA cores.
+Bound on the card: bytes at the bench's 104,448 training points (a0, Z
+and, backward, da0 moved; forward about 8.4e10 FLOP, backward about twice
+that). K7f computes with float32 FMAs on the CUDA cores. K7b's bf16 path
+runs K2b's two tensor-core passes (``sdf_grad.bwd_tc``,
+csrc/sdf_grad_bwd_tc.cuh, compiled into K7b's own library) on the given a0,
+with layer 0's product added for da0; its float32 path stays on the CUDA
+cores.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 
 from ..nn import matmul_rounded, round_to
 from . import build
-from .sdf_grad import _z_ptrs, gate100
+from .sdf_grad import _z_ptrs, bwd_tc, gate100
 from .sdf_mlp import check_mlp_dims
 
 NAME = "sdf_grad_grid"
@@ -157,24 +161,26 @@ def sdf_mlp_with_grad_in_bwd(ws, bs, a0, zs, c_sdf, c_feat, c_grad, dtype=None):
     build.require(cf, "c_feat", act, (N, F), dev)
     build.require(cg, "c_grad", act, (N, 3), dev)
     P, desc = build.pack_mlp(ws, bs)
-    PT, _ = build.pack_mlp([w.t() for w in ws], bs)  # W^T at the same offsets
     n_params = P.numel()
     out = torch.empty(n_params, dtype=torch.float32, device=dev)
     da0 = torch.empty(4, N, d0, dtype=torch.float32, device=dev)
-    if N > 0:
+    if N > 0 and dtype is not None:
+        bwd_tc(BWD_NAME, ws, N, zs, cs, cf, cg, desc, out, a0=a0, da0=da0)
+        build.launches[BWD_NAME] += 1
+    elif N > 0:
+        PT, _ = build.pack_mlp([w.t() for w in ws], bs)  # W^T at the same offsets
         grid = min(build.num_sms(dev), -(-N // 16))  # csrc/common.cuh PTS points a tile
         work = torch.empty(grid, n_params, dtype=torch.float32, device=dev)
         lib = build.load(BWD_NAME)
         lib.sdf_grad_grid_bwd_launch.restype = ctypes.c_int
         lib.sdf_grad_grid_bwd_launch.argtypes = [
             _c, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), _c, _c,
-            ctypes.POINTER(_c), _c, _c, _c, _c, ctypes.c_int, ctypes.c_int, _c, _c, ctypes.c_int,
-            _c,
+            ctypes.POINTER(_c), _c, _c, _c, _c, ctypes.c_int, ctypes.c_int, _c, _c, _c,
         ]
         err = lib.sdf_grad_grid_bwd_launch(
             build.ptr(a0), N, d0, desc, build.ptr(P), build.ptr(PT), _z_ptrs(zs), build.ptr(cs),
             build.ptr(cf), build.ptr(cg), build.ptr(work), grid, n_params, build.ptr(out),
-            build.ptr(da0), int(dtype is not None), build.stream_ptr(dev),
+            build.ptr(da0), build.stream_ptr(dev),
         )
         build.check(lib, BWD_NAME, err)
         build.launches[BWD_NAME] += 1

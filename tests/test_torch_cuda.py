@@ -161,27 +161,33 @@ def _check_grads(outs, refs, dtype):
         assert err <= atol + rtol * b.float().abs().max().item(), err
 
 
+# 8,469 points: 265 tiles of the bf16 K2f's 32 points, more than the card
+# has SMs (the persistent tile loop wraps), the last one ragged (21 points),
+# and clamp_rows (n - 100) inside a tile, in its second warpgroup
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
-def test_k2_training_forward_and_backward_match_plain(dev, dtype):
+@pytest.mark.parametrize("dtype,n", [(None, 700), (torch.bfloat16, 700), (torch.bfloat16, 8469)],
+                         ids=["f32", "bf16", "bf16-8469"])
+def test_k2_training_forward_and_backward_match_plain(dev, dtype, n):
     """K2f with clamp_rows, flag and saved Z, and K2b, against their plain
-    versions; 700 points (no multiple of the 16-point tile), a 0.9 sphere
-    so that the clamp fires, the last 100 points unclamped."""
+    versions; 700 points (no multiple of the 16-point tile) or the 8,469
+    above, a 0.9 sphere so that the clamp fires, the last 100 points
+    unclamped."""
     imp, _ = _nets(dev)
+    clamp = n - 100
     with torch.no_grad():
         ws, bs = effective_linear_weights(imp)
-        x = _rand(dev, 700, 3, lo=-1.3, hi=1.3, seed=4)
-        args = (ws, bs, x, IMP.multires, IMP.skip_in, dtype, 0.9, 1.0, 600, True)
+        x = _rand(dev, n, 3, lo=-1.3, hi=1.3, seed=4)
+        args = (ws, bs, x, IMP.multires, IMP.skip_in, dtype, 0.9, 1.0, clamp, True)
         sdf, feat, grad, flag, zs = sdf_mlp_with_grad(*args)
         ref = sdf_mlp_with_grad_plain(*args)
         # where the take-MLP select flips (bf16: an SDF within a rounding of
         # the sphere's), sdf and grad take the other branch; compare the rest
         same = (flag == ref[3])[:, 0]
-        assert int((~same).sum()) <= (0 if dtype is None else 7)
+        assert int((~same).sum()) <= (0 if dtype is None else n // 100)
         _check([sdf[same], feat, grad[same], *zs], [ref[0][same], ref[1], ref[2][same], *ref[4]],
                dtype)
-        assert 0 < int((flag[:600] == 0).sum()) and bool((flag[600:] == 1).all())
-        cots = [_rand(dev, 700, k, seed=5 + k) for k in (1, 32, 3)]
+        assert 0 < int((flag[:clamp] == 0).sum()) and bool((flag[clamp:] == 1).all())
+        cots = [_rand(dev, n, k, seed=5 + k) for k in (1, 32, 3)]
         dws, dbs = sdf_mlp_with_grad_bwd(ws, bs, x, zs, *cots, IMP.multires, IMP.skip_in, dtype,
                                          flag)
         dws_p, dbs_p = sdf_mlp_with_grad_bwd_plain(ws, bs, x, zs, *cots, IMP.multires,
@@ -361,9 +367,12 @@ def test_k6_k5_match_plain(dev, dtype):
     assert build.launches["hash_encode_bwd"] - before["hash_encode_bwd"] == 1
 
 
+# 40,007 points: 2,501 16-point tiles of K7b's pass 1, more than the card
+# has SMs, the last one ragged; pass 2 splits its tiles
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
-def test_k7_forward_and_backward_match_plain(dev, dtype):
+@pytest.mark.parametrize("dtype,n", [(None, 700), (torch.bfloat16, 700), (torch.bfloat16, 40007)],
+                         ids=["f32", "bf16", "bf16-40007"])
+def test_k7_forward_and_backward_match_plain(dev, dtype, n):
     from monosdf_torch.kernels.sdf_grad_grid import (
         _forward,
         sdf_mlp_with_grad_in_bwd,
@@ -376,11 +385,11 @@ def test_k7_forward_and_backward_match_plain(dev, dtype):
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
     ws = [t(rng.normal(size=(a, b)) / np.sqrt(a)) for a, b in zip(sizes[:-1], sizes[1:])]
     bs = [t(0.1 * rng.normal(size=b)) for b in sizes[1:]]
-    a0 = t(rng.normal(size=(4, 700, 71)))
+    a0 = t(rng.normal(size=(4, n, 71)))
     sdf, feat, grad, zs = _forward(ws, bs, a0, dtype, True)
     ref = sdf_mlp_with_grad_in_plain(ws, bs, a0, dtype, True)
     _check([sdf, feat, grad, *zs], [*ref[:3], *ref[3]], dtype)
-    cots = [t(rng.normal(size=(700, k))) for k in (1, 32, 3)]
+    cots = [t(rng.normal(size=(n, k))) for k in (1, 32, 3)]
     dws, dbs, da0 = sdf_mlp_with_grad_in_bwd(ws, bs, a0, zs, *cots, dtype)
     pws, pbs, pda0 = sdf_mlp_with_grad_in_bwd_plain(ws, bs, a0, zs, *cots, dtype)
     _check_grads([*dws, *dbs, da0], [*pws, *pbs, pda0], dtype)

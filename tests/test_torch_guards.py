@@ -1,5 +1,5 @@
 """The port's import and device guards: ``monosdf_torch`` (its bench
-``monosdf_torch.bench`` included) and ``chip_smoke.py`` import neither JAX
+``monosdf_torch.bench`` and scripts included) and ``chip_smoke.py`` import neither JAX
 nor the JAX package, and an entry point
 needs a CUDA device unless the caller asks for the CPU. This file imports no
 JAX itself."""
@@ -21,6 +21,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import monosdf_torch.kernels.sdf_grad_grid, monosdf_torch.kernels.radiance_split\n"
         "import monosdf_torch.kernels.radiance_mlp, monosdf_torch.kernels.probes\n"
         "import monosdf_torch.scripts.probe_hash_primitives, monosdf_torch.bench\n"
+        "import monosdf_torch.scripts.rounding_parity\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'monosdf_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -58,6 +59,10 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
         probe.main(["--wave", "8"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         probe.wave1(only=("sort",), T=8, N_SCATTER=8)
+    from monosdf_torch.scripts import rounding_parity
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rounding_parity.main(["--n", "8"])
     from monosdf_torch import bench
 
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -160,30 +160,46 @@ def _mirror_read(wb, off, K, N, kc):
     return wb[idx].float()
 
 
-@pytest.mark.parametrize("grids", [False, True], ids=["mlp-39", "grid-71"])
-def test_bf16_weight_packer_reads_back_every_layer(grids):
-    """K1's bf16 tensor-core weights (64 input rows a ring stage) and K2b's
-    (W_l[:nprev]^T, 32 rows a stage), read back through a mirror of the
-    kernels' shared-memory addressing, are the bf16-rounded weights of
-    every layer: the bench MLP (39-wide input, the skip layer's 217 + 39 =
-    256) and the grid trunk (71-wide [PE | features])."""
+@pytest.mark.parametrize("case", ["mlp-39", "grid-71", "k2f-mlp-39", "k7b-grid-71"])
+def test_bf16_weight_packer_reads_back_every_layer(case):
+    """The tensor-core kernels' bf16 weights, read back through a mirror of
+    their shared-memory addressing, are the bf16-rounded weights of every
+    layer: K1's (64 input rows a ring stage) and K2b's (W_l[:nprev]^T, 32
+    rows a stage) for the bench MLP (39-wide input, the skip layer's 217 +
+    39 = 256) and the grid trunk (71-wide [PE | features]); K2f's (K1's and
+    the last layer's 256 feature columns) for the bench MLP; K7b's (K2b's
+    and W_0^T, whose 71 columns are zero-padded to the product's 256) for
+    the grid trunk."""
     from monosdf_torch.cli.eval import bench_config
-    from monosdf_torch.kernels.sdf_grad import BWD_KC
+    from monosdf_torch.kernels.sdf_grad import BWD_KC, pack_bwd, pack_fwd
 
+    grids = case.endswith("71")
     cfg = bench_config(grids)
     imp = tf.init_implicit_net(cfg.implicit, torch.Generator().manual_seed(0))
-    ws, bs, packed = tf.sweep_weights(imp, cfg.implicit)
-    widths = [w.shape[0] for w in ws]
-    assert widths[0] == (71 if grids else 39) and (grids or (217 + 39) in widths)
-    offs = list(packed.wb_off)
-    for l, w in enumerate(ws[:-1]):
-        assert torch.equal(_mirror_read(packed.wb, offs[l], *w.shape, k1.K1_KC),
-                           w.detach().bfloat16().float()), l
     full_ws = [w.detach() for w in tf.effective_linear_weights(imp)[0]]
-    mats = [full_ws[l][:full_ws[l - 1].shape[1]].t() for l in range(1, len(full_ws))]
-    wb, offs = k1.pack_wgmma_b(mats, BWD_KC)
-    for off, m in zip(offs, mats):
-        assert torch.equal(_mirror_read(wb, off, *m.shape, BWD_KC), m.bfloat16().float())
+    L = len(full_ws)
+    bwd_mats = {l: full_ws[l][:full_ws[l - 1].shape[1]].t() for l in range(1, L)}
+    if case == "k2f-mlp-39":
+        wb, offs = pack_fwd(full_ws)
+        mats, kc = {**dict(enumerate(full_ws[:-1])), L - 1: full_ws[-1][:, 1:]}, k1.K1_KC
+        assert mats[L - 1].shape == (256, 256)
+    elif case == "k7b-grid-71":
+        wb, offs = pack_bwd(full_ws, layer0=True)
+        mats, kc = {0: full_ws[0].t(), **bwd_mats}, BWD_KC
+        assert mats[0].shape == (256, 71)
+        assert not _mirror_read(wb, offs[0], 256, k1.WG_N, kc)[:, 71:].any()
+    else:
+        ws, bs, packed = tf.sweep_weights(imp, cfg.implicit)
+        widths = [w.shape[0] for w in ws]
+        assert widths[0] == (71 if grids else 39) and (grids or (217 + 39) in widths)
+        k1_offs = list(packed.wb_off)
+        for l, w in enumerate(ws[:-1]):
+            assert torch.equal(_mirror_read(packed.wb, k1_offs[l], *w.shape, k1.K1_KC),
+                               w.detach().bfloat16().float()), l
+        wb, offs = pack_bwd(full_ws)
+        mats, kc = bwd_mats, BWD_KC
+    for l, m in mats.items():
+        assert torch.equal(_mirror_read(wb, offs[l], *m.shape, kc), m.bfloat16().float()), l
 
 
 def test_k1_plain_matches_jnp_path(models):
