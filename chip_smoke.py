@@ -150,7 +150,8 @@ PATHS = {
 }
 SWEEPS = ("sdf_mlp", "sdf_mlp_pe", "sampler_machinery")  # the sampler's kernels
 # the libraries whose bf16 kernels run on the tensor cores (wgmma: HGMMA in SASS)
-TENSOR_CORE_LIBS = ("sdf_mlp", "sdf_grad", "sdf_grad_bwd", "sdf_grad_grid_bwd")
+TENSOR_CORE_LIBS = ("sdf_mlp", "sdf_grad", "sdf_grad_bwd", "sdf_grad_grid_bwd", "radiance_norm_bwd",
+                    "sdf_grad_grid")
 WARMUP_STEPS, TIMED_STEPS = 3, 20
 # stated tolerances, kernel vs plain version on the card: err <= atol + rtol * max|plain|;
 # bf16: a rounding that lands on the neighbouring bf16 value (ulp 2^-7 at 1)
@@ -1208,10 +1209,10 @@ def _profile(fn, reps: int, what: str) -> dict:
     for k, v in per_name.items():
         if not any(n in k for n in names):
             other[k[:60]] = other.get(k[:60], 0.0) + v
-    # the tensor-core kernels' parts: K1's and K2f's bf16 kernels, K2b's and
-    # K7b's two passes and their sums
-    parts = ("sdf_mlp_kernel_tc", "sdf_grad_kernel_tc",
-             *(f"{n}_kernel_{p}" for n in ("sdf_grad_bwd", "sdf_grad_grid_bwd")
+    # the tensor-core kernels' parts: K1's, K2f's and K7f's bf16 kernels,
+    # K2b's, K7b's and K3b's two passes and their sums
+    parts = ("sdf_mlp_kernel_tc", "sdf_grad_kernel_tc", "sdf_grad_grid_kernel_tc",
+             *(f"{n}_kernel_{p}" for n in ("sdf_grad_bwd", "sdf_grad_grid_bwd", "radiance_norm_bwd")
                for p in ("ct", "dw", "sums")))
     kern_parts = {n: sum(v for k, v in per_name.items() if n in k) for n in parts}
     return {"ms": ms, "device_busy_ms": busy, "busy_share": busy / ms, "kernels_ms": kern,

@@ -19,9 +19,11 @@
 // normals. The hidden layers alternate between the hidden buffer and the
 // input row's space, which is free once layer 0 has read it.
 //
-// The backward (a persistent grid; one float32 dW partial per block, summed
-// by reduce_partials in block order) recomputes the hidden layers, keeps at
-// most two of them, and runs the reverse sweep in place over them: the top
+// The SIMT backward (K8a's and K8b's, and K3b's float32 path; K3b's bf16
+// path runs on the tensor cores, radiance_bwd_tc.cuh) runs a persistent
+// grid (one float32 dW partial per block, summed by reduce_partials in
+// block order); it recomputes the hidden layers, keeps at most two of
+// them, and runs the reverse sweep in place over them: the top
 // cotangent co (float32 or the operand type, as given) gives db from its
 // unrounded values and dW and the propagation from its rounded ones; each
 // lower cotangent CT_l = (CT_{l+1} W^T) [y_l > 0] gives db_l from float32,

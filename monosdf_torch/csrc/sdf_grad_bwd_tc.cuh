@@ -22,11 +22,12 @@
 //     wanted, or a given a0 (4, N, d0) float32 (K7b): then pass 1 also runs
 //     layer 0's ct_A = CT_0 W_0^T (W_0^T's 71 columns zero-padded to the
 //     product's 256) and writes it to da0 in float32.
-//   pass 2 (kernel_dw): dW_l = A_l^T CT_l as a tall-K GEMM over all 4N rows:
-//     one CTA per (layer, 128 inputs, split of the tiles), two warpgroups on
-//     wgmma.m64n256k16 reading both operands transposed from a ring of bulk
-//     copies, float32 sums in registers; the last layer's feature columns
-//     take CT = [c_feat on the primal rows, 0].
+//   pass 2 (kernel_dw, bwd_dw_tc.cuh, shared with K3b): dW_l = A_l^T CT_l
+//     as a tall-K GEMM over all 4N rows: one CTA per (layer, 128 inputs,
+//     split of the tiles), two warpgroups on wgmma.m64n256k16 reading both
+//     operands transposed from a ring of bulk copies, float32 sums in
+//     registers; the last layer's feature columns take CT = [c_feat on the
+//     primal rows, 0].
 //   kernel_sums: the splits' and CTAs' partials summed in a fixed order. Two
 //     runs give the same bits.
 // CT is rounded to bf16 before both products, so the tensor cores compute
@@ -35,7 +36,7 @@
 // training shapes, ~1.2 GB at K7b's.
 #pragma once
 
-#include "wgmma.cuh"
+#include "bwd_dw_tc.cuh"
 
 namespace {
 
@@ -48,7 +49,6 @@ constexpr int TB_CHUNK = TB_KC * 256;       // bf16 elements of a pass-1 stage
 constexpr int XLD = 264;                    // row stride of the float32 exchange tile
 constexpr int KCT = 272;                    // CT operand width: the last layer's 257 outputs, padded
 constexpr int MAX_SMALL = 2816;             // pass-1 partial: every bias, the last layer's SDF column
-constexpr int BLK = 64 * 256;               // elements of a tile's 256-wide block
 
 struct Pass1Smem {
   __nv_bfloat16 w[TB_STAGES][TB_CHUNK];     // the weight ring (B operand: W_l[:nprev]^T)
@@ -60,15 +60,6 @@ struct Pass1Smem {
   float xs[PTS][3];
   float fl[PTS];
   wg::Ring<TB_STAGES> ring;
-};
-
-constexpr int P2_STAGES = 4;
-constexpr int P2_A = 64 * 128;              // elements of a pass-2 A slice (64 rows x 128 inputs)
-
-struct Pass2Smem {
-  __nv_bfloat16 a[P2_STAGES][P2_A];
-  __nv_bfloat16 ct[P2_STAGES][BLK];
-  wg::Ring<P2_STAGES> ring;
 };
 
 __device__ __forceinline__ int small_db(const MlpDesc& d, int l) {
@@ -90,17 +81,6 @@ __device__ __forceinline__ void store8(__nv_bfloat16* base, int r, int c, const 
 }
 
 }  // namespace
-
-// per-layer scratch: CT_l (l < L - 1; l = L - 1: the feature columns'
-// cotangent) and A_l (the layer input), each n_tiles blocks of 64 rows in
-// wgmma's layout (core_offset(r, c, 64)); A_l's blocks are kap[l] =
-// round_up(kin_l, 128) wide, CT_l's 256
-struct Scratch {
-  __nv_bfloat16* ct[MK_MAX_LAYERS];
-  __nv_bfloat16* a[MK_MAX_LAYERS];
-  int kap[MK_MAX_LAYERS];
-  int wb_off[MK_MAX_LAYERS];  // pass 1's packed W_l[:nprev]^T, TB_KC rows a chunk
-};
 
 // Pass 1: per tile of PTS points (64 rows, as the SIMT kernel's), from the
 // last layer down: CT, the gate step, ct_A = CT W^T on the tensor cores
@@ -364,68 +344,6 @@ BWD_TC_NAME(kernel_ct)(const float* __restrict__ x, int N, int multires,
   for (int i = tid; i < n_small; i += TB_CONSUMERS) part1[(size_t)blockIdx.x * n_small + i] = sm.part[i];
 }
 
-// Pass 2: dW_l = A_l^T CT_l over every tile, on the tensor cores. A CTA
-// takes one job: layer l, 128 of its inputs (m-block mb), every output
-// column (256), and split s of the tiles; two warpgroups of 64 inputs each,
-// wgmma.m64n256k16 reading both operands transposed (MN-major) from a ring
-// of bulk copies. Its 128 x 256 float32 sums go to part2[job].
-__global__ void __launch_bounds__(TB_THREADS, 1)
-BWD_TC_NAME(kernel_dw)(int n_tiles, int L, const __grid_constant__ Scratch sc, int splits,
-                       float* __restrict__ part2) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Pass2Smem& sm = *reinterpret_cast<Pass2Smem*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int job = blockIdx.x, s = job % splits;
-  int mbi = job / splits, l = 0;
-  while (mbi >= sc.kap[l] / 128) mbi -= sc.kap[l++] / 128;
-  const int mb = mbi;
-  const int per = (n_tiles + splits - 1) / splits;
-  const int t0 = s * per, t1 = min(n_tiles, t0 + per);
-  if (tid == 0) sm.ring.init(TB_CONSUMER_WARPS);
-  __syncthreads();
-
-  if (warp == TB_CONSUMER_WARPS) {
-    if (lane != 0) return;
-    uint32_t k = 0;
-    for (int tile = t0; tile < t1; ++tile, ++k)
-      sm.ring.produce2(k, sm.a[k % P2_STAGES], sc.a[l] + (size_t)tile * 64 * sc.kap[l] + mb * P2_A,
-                       P2_A * sizeof(__nv_bfloat16), sm.ct[k % P2_STAGES],
-                       sc.ct[l] + (size_t)tile * BLK, BLK * sizeof(__nv_bfloat16));
-    return;
-  }
-
-  const int g = warp >> 2, t = tid & 127;
-  float acc[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
-  wg::fence();
-  uint32_t k = 0;
-  for (int tile = t0; tile < t1; ++tile, ++k) {
-    sm.ring.acquire(k);
-    const __nv_bfloat16* a = sm.a[k % P2_STAGES] + 64 * 64 * g;
-    const __nv_bfloat16* ct = sm.ct[k % P2_STAGES];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint64_t da = wg::desc(a + 128 * j, 128, 1024);
-      const uint64_t db = wg::desc(ct + 128 * j, 128, 1024);
-      wg::wgmma_m64n256k16<1, 1>(acc, da, db, 1);
-    }
-    wg::commit();
-    if (tile > t0) {  // the previous stage's products are done: release it
-      wg::wait<1>();
-      if (lane == 0) sm.ring.release(k - 1);
-    }
-  }
-  wg::wait<0>();
-  if (lane == 0 && t1 > t0) sm.ring.release(k - 1);
-  float* out = part2 + (size_t)job * 128 * 256;
-#pragma unroll
-  for (int i = 0; i < 128; i += 2) {
-    const int r = 64 * g + wg::frag_row(t, i), c = wg::frag_col(t, i);
-    *reinterpret_cast<float2*>(&out[r * 256 + c]) = make_float2(acc[i], acc[i + 1]);
-  }
-}
-
 // out <- the weight gradients from pass 2's partials (summed over the splits
 // in order): every entry of the hidden layers, the last layer's feature
 // columns; and from pass 1's (summed over its CTAs in order) the biases and
@@ -502,7 +420,7 @@ extern "C" int sdf_grad_bwd_tc_launch(const float* x, int N, int multires, const
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaFuncSetAttribute(BWD_TC_NAME(kernel_dw), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
-  BWD_TC_NAME(kernel_dw)<<<jobs, TB_THREADS, smem2, s>>>((N + PTS - 1) / PTS, d.n_layers, sc, splits,
+  BWD_TC_NAME(kernel_dw)<<<jobs, DW_THREADS, smem2, s>>>((N + PTS - 1) / PTS, d.n_layers, sc, splits,
                                                          part2);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -19,12 +19,22 @@
 // pre-activation Z at the operand type, laid out (4, N, nout_l).
 //
 // Limits: d0 <= 80 (LD0), hidden widths <= 256, a last layer of at most 257
-// columns. Bound on the card: operations (about 8.4e10 FLOP at the bench's
-// 104,448 training points through the 2x256 trunk, against ~120 MB of
-// float32 input); this first version runs float32 FMAs on the CUDA cores.
+// columns. Bound on the card: bytes at the bench's 104,448 training points
+// (~120 MB of float32 a0 read and ~430 MB of bf16 Z written, 0.18 ms at
+// 3.35 TB/s, against about 8.4e10 FLOP, 0.085 ms at 989 TFLOP/s bf16).
+//
+// bf16, with Z (the training step) or without (the render chunk): the
+// tensor cores, K2f's training kernel (sdf_grad_tc.cuh, one body for both
+// libraries) with a0 as layer 0's input, rounded to bf16 in the activation
+// tile; weights packed once per call (kernels/sdf_grad.py pack_fwd). The
+// grid model's fixed-sample renders meet their bars with it (PERF.md).
+// float32: the SIMT kernel below, float32 FMAs on the CUDA cores (TF32
+// would miss the float32 bars).
 #include "common.cuh"
 
 using namespace mk;
+
+#include "sdf_grad_tc.cuh"
 
 template <bool BF16>
 __global__ void __launch_bounds__(THREADS)
@@ -124,24 +134,43 @@ sdf_grad_grid_kernel(const float* __restrict__ a0, int N, int d0, MlpDesc d,
   }
 }
 
+// bf16: the tensor-core body on a0
+__global__ void __launch_bounds__(TF_THREADS, 1)
+sdf_grad_grid_kernel_tc(const float* __restrict__ a0, int N, int d0, MlpDesc d,
+                        const float* __restrict__ P, const __nv_bfloat16* __restrict__ Wb,
+                        FwdWb wb, float* __restrict__ sdf_out, __nv_bfloat16* __restrict__ feat_out,
+                        float* __restrict__ grad_out, const __grid_constant__ ZPtrs z) {
+  sdf_grad_tc_body<true>(nullptr, a0, N, d0, d, P, Wb, wb, 0.0f, 1.0f, -1, sdf_out, feat_out,
+                         grad_out, nullptr, z);
+}
+
+// bf16: the tensor-core kernel on `ctas` persistent CTAs, with Wb (the
+// packed bf16 weights, wb_off their per-layer offsets); float32: the SIMT
+// kernel.
 extern "C" int sdf_grad_grid_launch(const float* a0, int N, int d0, const int* desc,
-                                    const float* P, float* sdf_out, void* feat_out,
-                                    float* grad_out, void* const* z_out, int bf16, void* stream) {
+                                    const float* P, const void* Wb, const int* wb_off,
+                                    float* sdf_out, void* feat_out, float* grad_out,
+                                    void* const* z_out, int bf16, int ctas, void* stream) {
   const MlpDesc d = desc_from(desc);
   ZPtrs z;
   for (int l = 0; l < MK_MAX_LAYERS; ++l) z.p[l] = z_out[l];
-  const size_t smem = MLP_SMEM_FLOATS * sizeof(float);
-  const dim3 grid((N + PTS - 1) / PTS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    cudaFuncSetAttribute(sdf_grad_grid_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    sdf_grad_grid_kernel<true><<<grid, THREADS, smem, s>>>(a0, N, d0, d, P, sdf_out, feat_out,
-                                                           grad_out, z);
-  } else {
-    cudaFuncSetAttribute(sdf_grad_grid_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    sdf_grad_grid_kernel<false><<<grid, THREADS, smem, s>>>(a0, N, d0, d, P, sdf_out, feat_out,
-                                                            grad_out, z);
+    FwdWb wb;
+    for (int l = 0; l < MK_MAX_LAYERS; ++l) wb.off[l] = wb_off[l];
+    const size_t smem = sizeof(FwdSmem);
+    cudaFuncSetAttribute(sdf_grad_grid_kernel_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    const int n_tiles = (N + TF_PTS - 1) / TF_PTS;
+    sdf_grad_grid_kernel_tc<<<ctas < n_tiles ? ctas : n_tiles, TF_THREADS, smem, s>>>(
+        a0, N, d0, d, P, static_cast<const __nv_bfloat16*>(Wb), wb, sdf_out,
+        static_cast<__nv_bfloat16*>(feat_out), grad_out, z);
+    return static_cast<int>(cudaGetLastError());
   }
+  const size_t smem = MLP_SMEM_FLOATS * sizeof(float);
+  cudaFuncSetAttribute(sdf_grad_grid_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  sdf_grad_grid_kernel<false><<<(N + PTS - 1) / PTS, THREADS, smem, s>>>(a0, N, d0, d, P, sdf_out,
+                                                                         feat_out, grad_out, z);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,21 +25,29 @@ view PE get no cotangent. dW0 comes back in W0's natural row order.
 
 Bound on the card: operations, narrowly (forward about 3.0e10 FLOP per
 100,352-sample batch with a 32-wide code, backward about three times that,
-against ~62 MB of operands and outputs, ~19 us at 3.35 TB/s). Both keep the
-321-wide input row and the hidden layers in shared memory, so device memory
-sees each input once and each output once; they compute with float32 FMAs
-on the CUDA cores.
+against ~62 MB of operands and outputs, ~19 us at 3.35 TB/s). The forward
+keeps the 321-wide input row and the hidden layers in shared memory, so
+device memory sees each input once and each output once, and computes with
+float32 FMAs on the CUDA cores, as does the float32 backward. The bf16
+backward runs on the tensor cores in two passes (csrc/radiance_bwd_tc.cuh):
+pass 1 recomputes the trunk, runs the reverse sweep and writes dg, df and
+dc, storing the layers' bf16 inputs and cotangents in ``wgmma``'s layout
+(~230 MB of scratch at the step's shapes); pass 2 sums ``A^T CT`` over the
+rows; partials are summed in a fixed order (two runs, the same bits). Its
+B operands are packed once per call (``pack_bwd``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..nn import round_to
 from . import build
 from .radiance_mlp import (
+    TILE_M,
     bwd_outputs,
     check_dtype,
     check_trunk,
@@ -48,6 +56,8 @@ from .radiance_mlp import (
     packed,
     trunk_bwd_plain,
 )
+from .sdf_grad import _ints
+from .sdf_mlp import WG_N, pack_wgmma_b
 
 NAME = "radiance_norm"
 BWD_NAME = "radiance_norm_bwd"
@@ -94,6 +104,62 @@ def radiance_norm_bwd_plain(ws, bs, g, sv, feat, co, cn, dtype=None, code=None):
     return dws, dbs, dg, df, dc
 
 
+# -- the tensor-core backward's operands ---------------------------------------
+
+BWD_KC = 64       # csrc/radiance_bwd_tc.cuh RB_KC: B rows per ring stage
+BWD_SMALL = 2 * 256 + 4 + 256 * 4  # csrc/radiance_bwd_tc.cuh RB_SMALL
+BWD_MAX_MATS = 8  # csrc/radiance_bwd_tc.cuh RB_MAX_MATS
+
+
+@functools.lru_cache(maxsize=None)
+def input_blocks(widths, outputs):
+    """The input-cotangent blocks of the tensor-core backward: W0's rows
+    that have a cotangent output (segments ``outputs`` of the input row,
+    whose segment widths are ``widths``), grouped into blocks of at most
+    256 (first fit, widest segment first; a wider segment is cut). Returns
+    per block its runs of W0 rows (start, stop) and, per column, (segment <<
+    16) | column in that segment."""
+    starts = [sum(widths[:s]) for s in range(len(widths))]
+    pieces = []
+    for s in sorted(outputs, key=lambda s: -widths[s]):
+        for c0 in range(0, widths[s], WG_N):
+            pieces.append((s, c0, min(WG_N, widths[s] - c0)))
+    blocks = []  # [(runs, codes)]
+    for s, c0, w in pieces:
+        blk = next((b for b in blocks if len(b[1]) + w <= WG_N), None)
+        if blk is None:
+            blk = ([], [])
+            blocks.append(blk)
+        blk[0].append((starts[s] + c0, starts[s] + c0 + w))
+        blk[1].extend((s << 16) | c for c in range(c0, c0 + w))
+    return tuple((tuple(runs), tuple(codes)) for runs, codes in blocks)
+
+
+_routes: dict = {}  # (widths, outputs, device) -> the route table on the device
+
+
+def pack_bwd(ws, widths, outputs):
+    """K3b's pass-1 B operands (csrc/radiance_bwd_tc.cuh), in ring order:
+    the forward's W_l (l < H), the backward's W_l^T (l = H - 1 .. 1), then
+    W0^T restricted to each input block's rows (``input_blocks``), each
+    ``BWD_KC`` rows a ring stage. Returns (the bf16 buffer, offsets, depths
+    K, number of blocks, the route table (blocks, 256) int32 on the weights'
+    device: -1 where a column has no output). The route table is made once
+    per device and shape, so a call copies nothing from the host."""
+    H = len(ws) - 1
+    blocks = input_blocks(tuple(widths), tuple(outputs))
+    mats = [ws[l] for l in range(H)] + [ws[l].t() for l in range(H - 1, 0, -1)]
+    mats += [torch.cat([ws[0][a:b] for a, b in runs]).t() for runs, _ in blocks]
+    wb, offs = pack_wgmma_b(mats, BWD_KC)
+    key = (tuple(widths), tuple(outputs), ws[0].device)
+    if key not in _routes:
+        route = torch.full((len(blocks), WG_N), -1, dtype=torch.int32)
+        for b, (_, codes) in enumerate(blocks):
+            route[b, :len(codes)] = torch.tensor(codes, dtype=torch.int32)
+        _routes[key] = route.to(ws[0].device)
+    return wb, offs, [m.shape[0] for m in mats], len(blocks), _routes[key]
+
+
 # -- the kernels -------------------------------------------------------------
 
 
@@ -109,11 +175,15 @@ def _lib():
 
 def _bwd_lib():
     lib = build.load(BWD_NAME)
-    lib.radiance_norm_bwd_launch.restype = ctypes.c_int
+    _i, _pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.radiance_norm_bwd_launch.restype = _i
     lib.radiance_norm_bwd_launch.argtypes = [
-        _c, _c, ctypes.c_int, _c, ctypes.c_int, _c, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), _c, _c, _c, _c, _c, _c, _c, _c, ctypes.c_int,
-        ctypes.c_int, _c, ctypes.c_int, _c,
+        _c, _c, _i, _c, _i, _c, _i, _i, _pi, _c, _c, _c, _c, _c, _c, _c, _c, _i, _i, _c, _c,
+    ]
+    lib.radiance_norm_bwd_tc_launch.restype = _i
+    lib.radiance_norm_bwd_tc_launch.argtypes = [
+        _c, _c, _i, _c, _i, _c, _i, _i, _pi, _c, _c, _pi, _pi, _i, _i, _c, _c, _c, _c, _c, _c,
+        ctypes.POINTER(_c), ctypes.POINTER(_c), _pi, _c, _i, _i, _c, _i, _i, _c, _c,
     ]
     return lib
 
@@ -169,8 +239,8 @@ def _launch_forward(ws, bs, g, sv, feat, dtype, code):
 def radiance_norm_bwd(ws, bs, g, sv, feat, co, cn, dtype=None, code=None):
     """K3b: (dws, dbs, dg (N, 3) float32, df (N, F) at the operand dtype,
     dc (N, C) float32 or None). A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel, which keeps at most two hidden layers
-    (the bench's 2x256)."""
+    CUDA tensor launches the kernel (bf16: the tensor-core passes), which
+    keeps at most two hidden layers (the bench's 2x256)."""
     if g.device.type == "cpu":
         return radiance_norm_bwd_plain(ws, bs, g, sv, feat, co, cn, dtype, code)
     return _launch_backward(ws, bs, g, sv, feat, co, cn, dtype, code)
@@ -184,25 +254,77 @@ def _launch_backward(ws, bs, g, sv, feat, co, cn, dtype, code):
     cn = cn.to(act).contiguous()
     build.require(co, "co", act, (N, ws[-1].shape[1]), dev)
     build.require(cn, "cn", act, (N, 3), dev)
-    P, PT, desc = packed(ws, bs, dev, transposed=True)
-    out, work, grid = bwd_outputs(P, N, dev)
     dg = torch.empty(N, 3, dtype=torch.float32, device=dev)
     df = torch.empty(N, F, dtype=act, device=dev)
     dc = torch.empty(N, C, dtype=torch.float32, device=dev) if code is not None else None
-    if N > 0:
+    if N > 0 and dtype is not None:
+        P, desc = packed(ws, bs, dev)
+        out = _launch_backward_tc(ws, P, desc, g, sv, feat, code, co, cn, dg, df, dc,
+                                  (ds, 3, F, C))
+        build.launches[BWD_NAME] += 1
+    elif N > 0:
+        P, PT, desc = packed(ws, bs, dev, transposed=True)
+        out, work, grid = bwd_outputs(P, N, dev)
         lib = _bwd_lib()
         err = lib.radiance_norm_bwd_launch(
             build.ptr(g), build.ptr(sv), ds, build.ptr(feat), F, opt_ptr(code), C, N, desc,
             build.ptr(P), build.ptr(PT), build.ptr(co), build.ptr(cn), build.ptr(dg),
             build.ptr(df), opt_ptr(dc), build.ptr(work), grid, P.numel(), build.ptr(out),
-            int(dtype is not None), build.stream_ptr(dev),
+            build.stream_ptr(dev),
         )
         build.check(lib, BWD_NAME, err)
         build.launches[BWD_NAME] += 1
     else:
-        out.zero_()
+        out = torch.zeros(sum(t.numel() for t in (*ws, *bs)), dtype=torch.float32, device=dev)
     dws, dbs = build.unpack_mlp(out, ws, bs)
     return dws, dbs, dg, df, dc
+
+
+def _launch_backward_tc(ws, P, desc, g, sv, feat, code, co, cn, dg, df, dc, widths):
+    """The tensor-core passes (csrc/radiance_bwd_tc.cuh): pass 1 on one CTA
+    per SM over 64-row tiles, storing each tile's h0, Y_l (l < H - 1) and
+    CT_l (l < H) as 64-row blocks of wgmma's layout; pass 2 over the blocks'
+    128-column slices and splits of the tiles; the ordered sums. Returns the
+    parameter gradients in ``build.pack_mlp``'s layout."""
+    dev, N = g.device, g.shape[0]
+    H = len(ws) - 1
+    n_small = sum(w.shape[1] for w in ws) + ws[-1].shape[0] * ws[-1].shape[1]
+    if n_small > BWD_SMALL:
+        raise ValueError(f"{n_small} bias and top-layer gradients > {BWD_SMALL}")
+    outputs = (1, 2, 3) if widths[3] > 0 else (1, 2)
+    wb, offs, ks, nblk, route = pack_bwd(ws, widths, outputs)
+    if len(offs) > BWD_MAX_MATS:
+        raise ValueError(f"{len(offs)} B operands > {BWD_MAX_MATS}")
+    n_tiles = -(-N // TILE_M)
+    blk = n_tiles * TILE_M
+    kap = [-(-w.shape[0] // 128) * 128 for w in ws[:H]]  # A_l blocks: layer l's input
+    scratch = torch.empty(blk * (sum(kap) + WG_N * H), dtype=torch.bfloat16, device=dev)
+    ct_ptrs, a_ptrs = (_c * build.MAX_LAYERS)(), (_c * build.MAX_LAYERS)()
+    off = 0
+    for l in range(H):
+        a_ptrs[l] = scratch[off:].data_ptr()
+        off += blk * kap[l]
+        ct_ptrs[l] = scratch[off:].data_ptr()
+        off += blk * WG_N
+    sms = build.num_sms(dev)
+    grid1 = min(sms, n_tiles)
+    blocks = sum(k // 128 for k in kap)
+    splits = max(1, min(n_tiles, sms // blocks))
+    part1 = torch.empty(grid1, n_small, dtype=torch.float32, device=dev)
+    part2 = torch.empty(blocks * splits, 128, WG_N, dtype=torch.float32, device=dev)
+    n_w = sum(w.shape[0] * w.shape[1] for w in ws[:H])
+    out = torch.empty(P.numel(), dtype=torch.float32, device=dev)
+    lib = _bwd_lib()
+    ds, _, F, C = widths
+    err = lib.radiance_norm_bwd_tc_launch(
+        build.ptr(g), build.ptr(sv), ds, build.ptr(feat), F, opt_ptr(code), C, N, desc,
+        build.ptr(P), build.ptr(wb), _ints(offs), _ints(ks), len(offs), nblk, build.ptr(route),
+        build.ptr(co), build.ptr(cn), build.ptr(dg), build.ptr(df), opt_ptr(dc), ct_ptrs, a_ptrs,
+        _ints(kap), build.ptr(part1), grid1, n_small, build.ptr(part2), splits,
+        max(n_small, n_w), build.ptr(out), build.stream_ptr(dev),
+    )
+    build.check(lib, BWD_NAME, err)
+    return out
 
 
 class _RadianceNorm(torch.autograd.Function):

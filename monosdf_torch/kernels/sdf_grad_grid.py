@@ -19,11 +19,15 @@ hands back to the encode (K5 takes its grid-feature columns).
 
 Bound on the card: bytes at the bench's 104,448 training points (a0, Z
 and, backward, da0 moved; forward about 8.4e10 FLOP, backward about twice
-that). K7f computes with float32 FMAs on the CUDA cores. K7b's bf16 path
-runs K2b's two tensor-core passes (``sdf_grad.bwd_tc``,
-csrc/sdf_grad_bwd_tc.cuh, compiled into K7b's own library) on the given a0,
-with layer 0's product added for da0; its float32 path stays on the CUDA
-cores.
+that). K7f's bf16 path, with Z (the training step) and without (the render
+chunk), runs on the tensor cores: K2f's training kernel
+(csrc/sdf_grad_tc.cuh, compiled into K7f's own library) with a0 as layer
+0's input, the weights packed once per call (``sdf_grad.pack_fwd``); the
+grid model's fixed-sample renders meet their bars with its chunk, which
+K2f's render chunk cannot (``PERF.md``). K7b's bf16 path runs K2b's two
+tensor-core passes (``sdf_grad.bwd_tc``, csrc/sdf_grad_bwd_tc.cuh, compiled
+into K7b's own library) on the given a0, with layer 0's product added for
+da0. Both float32 paths run float32 FMAs on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 
 from ..nn import matmul_rounded, round_to
 from . import build
-from .sdf_grad import _z_ptrs, bwd_tc, gate100
+from .sdf_grad import _ints, _z_ptrs, bwd_tc, check_tc_widths, gate100, pack_fwd
 from .sdf_mlp import check_mlp_dims
 
 NAME = "sdf_grad_grid"
@@ -114,10 +118,16 @@ def _check(ws, a0, dtype):
 
 
 def _forward(ws, bs, a0, dtype, save_z):
-    """K7f on a CUDA tensor, its plain version on a CPU tensor."""
+    """K7f on a CUDA tensor, its plain version on a CPU tensor. bf16 runs on
+    the tensor cores, with Z (``save_z``, the training step) or without (the
+    render chunk); float32 on the CUDA cores."""
     if a0.device.type == "cpu":
         return sdf_mlp_with_grad_in_plain(ws, bs, a0, dtype, save_z)
     _check(ws, a0, dtype)
+    wb, wb_off = None, [0]
+    if dtype is not None:
+        check_tc_widths(ws)
+        wb, wb_off = pack_fwd(ws)
     dev, N, d0 = a0.device, a0.shape[1], a0.shape[2]
     P, desc = build.pack_mlp(ws, bs)
     build.require(P, "weights", torch.float32, P.shape, dev)
@@ -129,12 +139,16 @@ def _forward(ws, bs, a0, dtype, save_z):
     if N > 0:
         lib = build.load(NAME)
         lib.sdf_grad_grid_launch.restype = ctypes.c_int
-        lib.sdf_grad_grid_launch.argtypes = [_c, ctypes.c_int, ctypes.c_int,
-                                             ctypes.POINTER(ctypes.c_int), _c, _c, _c, _c,
-                                             ctypes.POINTER(_c), ctypes.c_int, _c]
-        err = lib.sdf_grad_grid_launch(build.ptr(a0), N, d0, desc, build.ptr(P), build.ptr(sdf),
-                                       build.ptr(feat), build.ptr(grad), _z_ptrs(zs),
-                                       int(dtype is not None), build.stream_ptr(dev))
+        lib.sdf_grad_grid_launch.argtypes = [
+            _c, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), _c, _c,
+            ctypes.POINTER(ctypes.c_int), _c, _c, _c, ctypes.POINTER(_c), ctypes.c_int,
+            ctypes.c_int, _c,
+        ]
+        err = lib.sdf_grad_grid_launch(
+            build.ptr(a0), N, d0, desc, build.ptr(P), build.ptr(wb) if wb is not None else None,
+            _ints(wb_off), build.ptr(sdf), build.ptr(feat), build.ptr(grad), _z_ptrs(zs),
+            int(dtype is not None), build.num_sms(dev), build.stream_ptr(dev),
+        )
         build.check(lib, NAME, err)
         build.launches[NAME] += 1
     return (sdf, feat, grad, zs) if save_z else (sdf, feat, grad)

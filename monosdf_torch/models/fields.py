@@ -234,16 +234,21 @@ def sdf_feat_grad_pallas_grid(params: ImplicitNet, cfg: ImplicitNetConfig, x: to
     if any(s < cfg.num_layers - 1 for s in cfg.skip_in):
         raise NotImplementedError("the grid trunk kernels take no skip connections")
     prefix = x.shape[:-1]
-    xf = x.reshape(-1, 3).detach()
+    a0 = grid_trunk_input(params, cfg, x.reshape(-1, 3).detach(), table)
+    ws, bs = effective_linear_weights(params)
+    sdf, f, g = sdf_mlp_with_grad_in(ws, bs, a0, dtype)
+    return sdf.reshape(*prefix, 1), f.reshape(*prefix, -1), g.reshape(*prefix, 3)
+
+
+def grid_trunk_input(params: ImplicitNet, cfg: ImplicitNetConfig, xf: torch.Tensor, table=None):
+    """The grid trunk's layer-0 input of points xf (N, 3): (4, N, d0), [PE(x)
+    | features] and its three spatial tangents."""
     N = xf.shape[0]
     table = grid_table(params, cfg) if table is None else table
     emb, tang = pe_with_tangents(xf, cfg.multires)
     feat, tg = _grid_features(params, cfg, xf, table, tangents=True)
-    a0 = torch.cat([torch.cat([emb, feat], dim=-1)[None],
-                    torch.cat([tang.reshape(3, N, -1), tg], dim=-1)], dim=0)
-    ws, bs = effective_linear_weights(params)
-    sdf, f, g = sdf_mlp_with_grad_in(ws, bs, a0, dtype)
-    return sdf.reshape(*prefix, 1), f.reshape(*prefix, -1), g.reshape(*prefix, 3)
+    return torch.cat([torch.cat([emb, feat], dim=-1)[None],
+                      torch.cat([tang.reshape(3, N, -1), tg], dim=-1)], dim=0)
 
 
 def _spatial_grad(y: torch.Tensor, x: torch.Tensor, keep_graph: bool) -> torch.Tensor:

@@ -220,22 +220,49 @@ def test_k2b_matches_plain_over_more_tiles_than_sms(dev, dtype):
         assert all(torch.equal(a, b) for a, b in zip([*dws, *dbs], [*again[0], *again[1]]))
 
 
+# 40,007 rows: 626 64-row tiles of the bf16 K3b's pass 1, more than the
+# card has SMs (the persistent tile loop wraps), the last one ragged (7
+# rows); pass 2 splits its tiles
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
-def test_k3_backward_matches_plain(dev, dtype):
-    _, ren = _nets(dev)
+@pytest.mark.parametrize("dtype,n,code_dim", [(None, 700, 0), (torch.bfloat16, 700, 0),
+                                              (torch.bfloat16, 40007, 0),
+                                              (torch.bfloat16, 40007, 8)],
+                         ids=["f32", "bf16", "bf16-40007", "bf16-40007-code"])
+def test_k3_backward_matches_plain(dev, dtype, n, code_dim):
+    """K3b against its plain version (dg, dc and the parameter gradients at
+    the gradient bars, df at the forward's); at 40,007 rows also with a
+    code, the rows whose ReLU gates lie within float32 rounding of 0 with
+    a zero cotangent (counted: under 1% of the rows), and the same bits on
+    two runs."""
     with torch.no_grad():
-        rws, rbs = effective_linear_weights(ren)
-        g = _rand(dev, 700, 3, seed=1)
-        g[:5] = 0.0
-        sv = torch.cat([_rand(dev, 700, 3), positional_encoding(_rand(dev, 700, 3, seed=2), 4)], -1)
-        feat = _rand(dev, 700, 32, seed=3)
-        co, cn = _rand(dev, 700, 3, seed=8), _rand(dev, 700, 3, seed=9)
-        dws, dbs, dg, df, _ = radiance_norm_bwd(rws, rbs, g, sv, feat, co, cn, dtype)
-        dws_p, dbs_p, dg_p, df_p, _ = radiance_norm_bwd_plain(rws, rbs, g, sv, feat, co, cn,
-                                                              dtype)
-        _check_grads([*dws, *dbs, dg], [*dws_p, *dbs_p, dg_p], dtype)
-        _check([df], [df_p], dtype)
+        if code_dim:
+            ws, bs, g, sv, feat, code, co, cn = _radiance_case(dev, code_dim, n)
+        else:
+            _, ren = _nets(dev)
+            ws, bs = effective_linear_weights(ren)
+            g = _rand(dev, n, 3, seed=1)
+            g[:5] = 0.0
+            sv = torch.cat([_rand(dev, n, 3), positional_encoding(_rand(dev, n, 3, seed=2), 4)],
+                           -1)
+            feat, code = _rand(dev, n, 32, seed=3), None
+            co, cn = _rand(dev, n, 3, seed=8), _rand(dev, n, 3, seed=9)
+        if n > 700:
+            from monosdf_torch.kernels.radiance_norm import normalize
+
+            parts = [sv, normalize(g), feat] + ([code] if code is not None else [])
+            cleared = _clear_gated_rows(co, torch.cat(parts, -1), ws, bs)
+            assert int((cleared != co).any(-1).sum()) < n // 100
+            co = cleared
+        dws, dbs, dg, df, dc = radiance_norm_bwd(ws, bs, g, sv, feat, co, cn, dtype, code)
+        p = radiance_norm_bwd_plain(ws, bs, g, sv, feat, co, cn, dtype, code)
+        extra = [(dc, p[4])] if code is not None else []
+        _check_grads([*dws, *dbs, dg, *(a for a, _ in extra)],
+                     [*p[0], *p[1], p[2], *(b for _, b in extra)], dtype)
+        _check([df], [p[3]], dtype)
+        if n > 700:
+            again = radiance_norm_bwd(ws, bs, g, sv, feat, co, cn, dtype, code)
+            both = zip([*dws, *dbs, dg, df, dc], [*again[0], *again[1], *again[2:]])
+            assert all(a is None or torch.equal(a, b) for a, b in both)
 
 
 @pytest.mark.cuda
@@ -367,8 +394,9 @@ def test_k6_k5_match_plain(dev, dtype):
     assert build.launches["hash_encode_bwd"] - before["hash_encode_bwd"] == 1
 
 
-# 40,007 points: 2,501 16-point tiles of K7b's pass 1, more than the card
-# has SMs, the last one ragged; pass 2 splits its tiles
+# 40,007 points: 1,251 32-point tiles of the bf16 K7f (with Z: the tensor
+# cores) and 2,501 16-point tiles of K7b's pass 1, more than the card has
+# SMs, the last ones ragged (7 points); pass 2 splits its tiles
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,n", [(None, 700), (torch.bfloat16, 700), (torch.bfloat16, 40007)],
                          ids=["f32", "bf16", "bf16-40007"])
@@ -389,6 +417,7 @@ def test_k7_forward_and_backward_match_plain(dev, dtype, n):
     sdf, feat, grad, zs = _forward(ws, bs, a0, dtype, True)
     ref = sdf_mlp_with_grad_in_plain(ws, bs, a0, dtype, True)
     _check([sdf, feat, grad, *zs], [*ref[:3], *ref[3]], dtype)
+    _check(_forward(ws, bs, a0, dtype, False), ref[:3], dtype)  # the render chunk's variant
     cots = [t(rng.normal(size=(n, k))) for k in (1, 32, 3)]
     dws, dbs, da0 = sdf_mlp_with_grad_in_bwd(ws, bs, a0, zs, *cots, dtype)
     pws, pbs, pda0 = sdf_mlp_with_grad_in_bwd_plain(ws, bs, a0, zs, *cots, dtype)

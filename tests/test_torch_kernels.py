@@ -160,16 +160,23 @@ def _mirror_read(wb, off, K, N, kc):
     return wb[idx].float()
 
 
-@pytest.mark.parametrize("case", ["mlp-39", "grid-71", "k2f-mlp-39", "k7b-grid-71"])
+@pytest.mark.parametrize("case", ["mlp-39", "grid-71", "k2f-mlp-39", "k7b-grid-71", "k7f-grid-71",
+                                  "k3b-radiance-289", "k3b-radiance-321"])
 def test_bf16_weight_packer_reads_back_every_layer(case):
     """The tensor-core kernels' bf16 weights, read back through a mirror of
     their shared-memory addressing, are the bf16-rounded weights of every
     layer: K1's (64 input rows a ring stage) and K2b's (W_l[:nprev]^T, 32
     rows a stage) for the bench MLP (39-wide input, the skip layer's 217 +
     39 = 256) and the grid trunk (71-wide [PE | features]); K2f's (K1's and
-    the last layer's 256 feature columns) for the bench MLP; K7b's (K2b's
-    and W_0^T, whose 71 columns are zero-padded to the product's 256) for
-    the grid trunk."""
+    the last layer's 256 feature columns) for the bench MLP, and K7f's (the
+    same packing, the 71 input rows zero-padded to the ring's 128) for the
+    grid trunk; K7b's (K2b's and W_0^T, whose 71 columns are zero-padded to
+    the product's 256) for the grid trunk; K3b's (W_l, W_1^T and W_0^T's
+    rows with a cotangent output in blocks, 64 rows a stage) for the bench's
+    289-wide and the appearance-code model's 321-wide radiance input, each
+    block's route table naming the segment column of every row."""
+    if case.startswith("k3b"):
+        return _check_k3b_packing(int(case[-3:]))
     from monosdf_torch.cli.eval import bench_config
     from monosdf_torch.kernels.sdf_grad import BWD_KC, pack_bwd, pack_fwd
 
@@ -179,10 +186,12 @@ def test_bf16_weight_packer_reads_back_every_layer(case):
     full_ws = [w.detach() for w in tf.effective_linear_weights(imp)[0]]
     L = len(full_ws)
     bwd_mats = {l: full_ws[l][:full_ws[l - 1].shape[1]].t() for l in range(1, L)}
-    if case == "k2f-mlp-39":
+    if case in ("k2f-mlp-39", "k7f-grid-71"):
         wb, offs = pack_fwd(full_ws)
         mats, kc = {**dict(enumerate(full_ws[:-1])), L - 1: full_ws[-1][:, 1:]}, k1.K1_KC
         assert mats[L - 1].shape == (256, 256)
+        d0 = full_ws[0].shape[0]
+        assert not _mirror_read(wb, offs[0], -(-d0 // kc) * kc, k1.WG_N, kc)[d0:].any()
     elif case == "k7b-grid-71":
         wb, offs = pack_bwd(full_ws, layer0=True)
         mats, kc = {0: full_ws[0].t(), **bwd_mats}, BWD_KC
@@ -200,6 +209,38 @@ def test_bf16_weight_packer_reads_back_every_layer(case):
         mats, kc = bwd_mats, BWD_KC
     for l, m in mats.items():
         assert torch.equal(_mirror_read(wb, offs[l], *m.shape, kc), m.bfloat16().float()), l
+
+
+def _check_k3b_packing(d0):
+    from monosdf_torch.cli.eval import bench_mlp_config, union_codes_config
+    from monosdf_torch.kernels.radiance_norm import BWD_KC, pack_bwd
+
+    cfg = (union_codes_config() if d0 == 321 else bench_mlp_config()).rendering
+    ren = tf.init_rendering_net(cfg, torch.Generator().manual_seed(0))
+    ws = [w.detach() for w in tf.effective_linear_weights(ren)[0]]
+    F, C = cfg.feature_vector_size, cfg.code_dim if cfg.per_image_code else 0
+    widths = (d0 - 3 - F - C, 3, F, C)
+    assert ws[0].shape[0] == d0 and len(ws) == 3
+    wb, offs, ks, nblk, route = pack_bwd(ws, widths, (1, 2, 3) if C else (1, 2))
+    # each block's W0^T rows, rebuilt from its route table: (segment << 16)
+    # | column, every output column once, the columns with an output first
+    starts = [0, widths[0], widths[0] + 3, widths[0] + 3 + F]
+    blocks, seen = [], []
+    for b in range(nblk):
+        codes = [int(v) for v in route[b] if v >= 0]
+        assert all(v < 0 for v in route[b, len(codes):])
+        seen += codes
+        blocks.append(ws[0][[starts[v >> 16] + (v & 0xFFFF) for v in codes]].t())
+    assert sorted(seen) == sorted((s << 16) | c for s in (1, 2, 3) for c in range(widths[s]))
+    assert nblk == 2 and blocks[0].shape[1] == F
+    mats = [ws[0], ws[1], ws[1].t(), *blocks]
+    assert ks == [m.shape[0] for m in mats]
+    for m, (off, mat) in enumerate(zip(offs, mats)):
+        assert torch.equal(_mirror_read(wb, off, *mat.shape, BWD_KC), mat.bfloat16().float()), m
+    # padding: W_0's rows past d0 up to the ring's 64-row stages, a block's
+    # columns past its width
+    assert not _mirror_read(wb, offs[0], -(-d0 // 64) * 64, k1.WG_N, BWD_KC)[d0:].any()
+    assert not _mirror_read(wb, offs[4], 256, k1.WG_N, BWD_KC)[:, 3 + C:].any()
 
 
 def test_k1_plain_matches_jnp_path(models):
