@@ -22,6 +22,9 @@ through K3 and through K8a. Phases (any failure exits non-zero):
    embedding and on the raw points), K2's training forward (clamp_rows,
    flag, saved Z) and
    K2b at the training step's 104,448 points, K3b at its 100,352 samples;
+   K2f's bf16 render chunk kernel against its order reference, the SIMT
+   kernel, bit for bit on the MLP and union models' trunks (and the
+   reference's time);
    for the grid model K6 at the sweeps' 131,072 points (6 levels) and at
    the step's 104,448 points (16 levels, with tangents), K5, K7f and K7b at
    104,448 points, K1 at the grid trunk's 71-wide input; the radiance
@@ -30,7 +33,8 @@ through K3 and through K8a. Phases (any failure exits non-zero):
    and backward on the nerf trunk's 283-wide input;
 4. render 4 synthetic 64x64 views through cli/eval.py at full width
    (geometric init plus seeded noise) with the kernels, counting launches
-   (K1 = K4 = 5 and K2 = K3 = 1 per chunk); render every chunk again with
+   (K1 = K4 = 5 and K2 = K3 = 1 per chunk, K2f's order reference 0 on
+   every main path); render every chunk again with
    each kernel's plain version in its wrapper's place, once through the
    sampler and once at the kernel render's own samples (render_samples),
    and compare; time one chunk both ways; phases 4 and 5 again with
@@ -42,7 +46,7 @@ through K3 and through K8a. Phases (any failure exits non-zero):
    fixed, the loss and every parameter gradient with the kernels and with
    each kernel's plain version in its place, compared, in bf16 and float32;
 6. profile the render chunk and one training step (torch.profiler): device
-   time per kernel, busy share;
+   time per kernel, busy share (the union model's render chunk too);
 7. the grid model: 4 views through cli/eval.py --grids (launches per
    chunk K1 = K4 = 4, K6 = 5, K7f = 1) with the like-for-like checks of
    phase 4; 3 warm-up and 20 timed steps of cli/train.py --grids (K1 = K4
@@ -124,7 +128,9 @@ PROBE_SITES = {
 TPU_KERNELS.update({name: sites[0] for name, sites in PROBE_SITES.items()})
 # K1-PE: K1's library on raw points (kernel_pe, inside the pl.pallas_call at :310)
 TPU_KERNELS["sdf_mlp_pe"] = "monosdf_tpu/ops/pallas_mlp.py:140"
-_NONE = dict.fromkeys(TPU_KERNELS, 0)
+# and the launches of K2f's SIMT kernel as the render chunk's order
+# reference (build.reference_launches), which no main path makes
+_NONE = dict.fromkeys([*TPU_KERNELS, "sdf_grad_simt"], 0)
 PER_CHUNK = {**_NONE, "sdf_mlp": 5, "sampler_machinery": 5, "sdf_grad": 1, "radiance_norm": 1}
 PER_STEP = {**PER_CHUNK, "sdf_grad_bwd": 1, "radiance_norm_bwd": 1}
 # the grid model: 4 sampler sweeps (K1 on [PE | K6 features of 6 levels])
@@ -151,7 +157,7 @@ PATHS = {
 SWEEPS = ("sdf_mlp", "sdf_mlp_pe", "sampler_machinery")  # the sampler's kernels
 # the libraries whose bf16 kernels run on the tensor cores (wgmma: HGMMA in SASS)
 TENSOR_CORE_LIBS = ("sdf_mlp", "sdf_grad", "sdf_grad_bwd", "sdf_grad_grid_bwd", "radiance_norm_bwd",
-                    "sdf_grad_grid")
+                    "sdf_grad_grid", "radiance_norm")
 WARMUP_STEPS, TIMED_STEPS = 3, 20
 # stated tolerances, kernel vs plain version on the card: err <= atol + rtol * max|plain|;
 # bf16: a rounding that lands on the neighbouring bf16 value (ulp 2^-7 at 1)
@@ -251,8 +257,24 @@ def mlp_flops(ws, rows: int) -> float:
     return 2.0 * rows * sum(w.shape[0] * w.shape[1] for w in ws)
 
 
+def bits_equal(a, b) -> bool:
+    """The same dtype, shape and bits (a bf16 or float32 tensor)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def launch_counts() -> dict:
+    """The launches counted since the last reset: each kernel's, and K2f's
+    order reference's."""
+    from monosdf_torch.kernels import build
+
+    return {**build.launches, **build.reference_launches}
 
 
 def hgmma_counts() -> dict:
@@ -446,6 +468,34 @@ def kernel_checks(model, cfg, dev):
             n = len(k4_inputs) if name == "sampler_machinery" else 1
             results[name].update(ms=k / n, plain_ms=p / n)
 
+        # K2f's render chunk kernel against its order reference, the SIMT
+        # kernel, at bf16: bit for bit on the MLP model's trunk (with its
+        # SDF clamp) and on the union model's (no clamp), and the reference's
+        # time on the same inputs
+        from monosdf_torch.cli.eval import union_codes_config
+
+        union = perturbed_model(union_codes_config("bfloat16"), dev)
+        trunks = {"mlp": (ws, bs, imp.sdf_bounding_sphere),
+                  "union": (*effective_linear_weights(union.implicit), 0.0)}
+        del union
+        same_all = True
+        for tag, (tw, tb, sphere) in trunks.items():
+            args = (tw, tb, x_main, imp.multires, imp.skip_in, bf, sphere, imp.sphere_scale)
+            out_k, out_r = k2.sdf_mlp_with_grad(*args), k2.sdf_mlp_with_grad_simt(*args)
+            torch.cuda.synchronize()
+            same = all(bits_equal(a, b) for a, b in zip(out_k, out_r))
+            err = max(max_err(a, b)[0] for a, b in zip(out_k, out_r))
+            print(f"check sdf_grad chunk vs its SIMT order reference, {tag} trunk, bf16: "
+                  f"{'bit-equal' if same else 'DIFFERENT'} (max abs diff {err:.3e}) "
+                  f"{'ok' if same else 'FAIL'}", flush=True)
+            same_all = same_all and same
+        ok = ok and same_all
+        args = (ws, bs, x_main, imp.multires, imp.skip_in, bf, imp.sdf_bounding_sphere,
+                imp.sphere_scale)
+        results["sdf_grad"].update(
+            bit_equal_simt_reference=same_all,
+            ms_simt_reference=cuda_ms(lambda: k2.sdf_mlp_with_grad_simt(*args), reps=5))
+
     # bounds: the least time for this work on an H100 SXM (700 W)
     sweep_flops = mlp_flops(ws_sweep, n_sweep)
     sweep_bytes = nbytes(emb) / 2 + n_sweep * 4 + nbytes(*ws_sweep, *bs_sweep)
@@ -469,6 +519,9 @@ def kernel_checks(model, cfg, dev):
     }
     for name, (b, by) in bounds.items():
         results[name].update(bound_ms=b, bound_by=by)
+    # the render chunk's kernel runs on the CUDA cores: its floor at their
+    # float32 FMA peak (bound_ms assumes the bf16 tensor cores')
+    results["sdf_grad"]["fp32_floor_ms"] = k2_flops / H100_F32_FLOPS * 1e3
     if not ok:
         fail("a kernel disagrees with its plain version beyond the stated tolerance")
     return results
@@ -973,7 +1026,7 @@ def render_phase(dev, which: str = "mlp"):
         rows, outs = evaluate(model, cfg, run_frames, CHUNK)
         torch.cuda.synchronize()
         t_k = time.perf_counter() - t0
-        counts = dict(build.launches)
+        counts = launch_counts()
         expect = {k: v * len(chunks) for k, v in per_chunk.items()}
         print(f"{tag} {dname}: {len(run_frames)} views, {len(chunks)} chunks in {t_k:.2f} s; "
               f"launches {counts} (expected {expect}); psnr vs gt "
@@ -1082,7 +1135,7 @@ def train_phase(dev, which: str = "mlp"):
                for b in batches[WARMUP_STEPS:WARMUP_STEPS + TIMED_STEPS]]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = dict(build.launches)
+    counts = launch_counts()
     expect = {k: v * TIMED_STEPS for k, v in per_step.items()}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     ms_step = dt / TIMED_STEPS * 1e3
@@ -1128,7 +1181,7 @@ def train_phase(dev, which: str = "mlp"):
                                   generator=torch.Generator(device=dev).manual_seed(SEED + 3))
         build.reset_launch_counts()
         lk, gk = _loss_and_grads(model_d, cfg_d, batch, z_vals, eik)
-        counts_k = dict(build.launches)
+        counts_k = launch_counts()
         use_plain_versions(True)
         build.reset_launch_counts()
         lp, gp = _loss_and_grads(model_d, cfg_d, batch, z_vals, eik)
@@ -1209,9 +1262,11 @@ def _profile(fn, reps: int, what: str) -> dict:
     for k, v in per_name.items():
         if not any(n in k for n in names):
             other[k[:60]] = other.get(k[:60], 0.0) + v
-    # the tensor-core kernels' parts: K1's, K2f's and K7f's bf16 kernels,
-    # K2b's, K7b's and K3b's two passes and their sums
-    parts = ("sdf_mlp_kernel_tc", "sdf_grad_kernel_tc", "sdf_grad_grid_kernel_tc",
+    # the tensor-core kernels' parts: K1's, K2f's (and its render chunk's
+    # CUDA-core kernel), K7f's and K3f's bf16 kernels, K2b's, K7b's and
+    # K3b's two passes and their sums
+    parts = ("sdf_mlp_kernel_tc", "sdf_grad_kernel_tc", "sdf_grad_kernel_fma", "sdf_grad_grid_kernel_tc",
+             "radiance_norm_kernel_tc",
              *(f"{n}_kernel_{p}" for n in ("sdf_grad_bwd", "sdf_grad_grid_bwd", "radiance_norm_bwd")
                for p in ("ct", "dw", "sums")))
     kern_parts = {n: sum(v for k, v in per_name.items() if n in k) for n in parts}
@@ -1570,8 +1625,9 @@ def main(argv):
         suffix = PATHS[which][0]
         rinfo, runs = render_phase(dev, which)
         tinfo, train_run = train_phase(dev, which)
-        # render profiles of the bench models; one step of every model
-        profile_phase(runs if which in ("mlp", "grids") else {}, rinfo, train_run, tinfo,
+        # render profiles of the bench models and the union model (K3); one
+        # step of every model
+        profile_phase(runs if which in ("mlp", "grids", "codes") else {}, rinfo, train_run, tinfo,
                       suffix.replace("_", " "))
         lines[f"render{suffix}"], lines[f"train{suffix}"] = rinfo, tinfo
         del runs, train_run

@@ -14,13 +14,10 @@
 //     (kernels/radiance_norm.py pack_bwd: W_l, then W_l^T for l >= 1, then
 //     W0^T's rows that have a cotangent output, in blocks of <= 256), 64
 //     rows a stage through a ring of bulk copies. Per tile:
-//     - the input row h0 = [sv | n | feat | code] (n = g / q as rad_normals
-//       computes it) is built in shared memory at bf16 in wgmma's layout;
-//     - the forward recompute, Y_l = relu(rnd(rnd(A W_l) + rnd(b_l))): per
-//       64-deep weight stage a fresh float32 sum on the tensor cores, which
-//       the CUDA cores add into the layer's sums (as K2f's training kernel
-//       does: its bf16 roundings land nearer the plain version's). Y_l is
-//       bf16-exact after its rounding, so it is kept as bf16;
+//     - the input row h0 and the forward recompute, Y_l = relu(rnd(rnd(A
+//       W_l) + rnd(b_l))), are K3f's forward (radiance_tc.cuh rb_build_h0,
+//       rb_forward; its comment gives the design), with h0 and Y_l stored
+//       for pass 2 after each layer;
 //     - the top layer on the CUDA cores, one thread per column of Y_{H-1}:
 //       dW_H = Y_{H-1}^T rnd(co) and db_H from co, CT_{H-1} = (rnd(co)
 //       W_H^T)[Y_{H-1} > 0] with db_{H-1} from its float32 values, all in
@@ -53,15 +50,10 @@
 #pragma once
 
 #include "bwd_dw_tc.cuh"
+#include "radiance_tc.cuh"
 
 namespace {
 
-constexpr int RB_CONSUMERS = 256;              // two warpgroups
-constexpr int RB_THREADS = RB_CONSUMERS + 32;  // and one producer warp
-constexpr int RB_CONSUMER_WARPS = 8;
-constexpr int RB_KC = 64;                      // B rows per ring stage
-constexpr int RB_STAGES = 3;
-constexpr int RB_CHUNK = RB_KC * 256;          // bf16 elements of a stage
 constexpr int RB_MAX_HIDDEN = 2;
 // the CTA's partial: every bias (<= 2 x 256 + 4) and dW_H (<= 256 x 4)
 constexpr int RB_SMALL = 2 * 256 + 4 + 256 * 4;
@@ -117,73 +109,6 @@ __device__ __forceinline__ void copy_out(__nv_bfloat16* __restrict__ dst, const 
 
 }  // namespace
 
-// H <- the tile's input rows at bf16 in wgmma's layout (R = 64), zero past
-// N and in the pad columns up to round_up(d0, 16); K3b's normals from nr. A
-// segment's rows of the tile are one run of rows x width elements in device
-// memory: a thread reads 16 bytes of it at a time where the run is 16-byte
-// aligned (as the operands the wrapper allocates are), else one element.
-__device__ __forceinline__ void rb_build_h0(__nv_bfloat16* H, const RadIn& in, const float* nr,
-                                            int N, int row0) {
-  const int tid = threadIdx.x;
-  const int rows = min(TILE_M, N - row0);
-  int c0 = 0;
-  for (int s = 0; s < in.nseg; ++s) {
-    const RadSeg& sg = in.seg[s];
-    const int w = sg.width, n = rows * w, per = sg.f32 ? 4 : 8;
-    const char* base = static_cast<const char*>(sg.p) + (size_t)row0 * w * (sg.f32 ? 4 : 2);
-    if (s != in.norm_seg && (reinterpret_cast<uintptr_t>(base) & 15) == 0) {
-#pragma unroll 2
-      for (int v = tid; v * per < n; v += RB_CONSUMERS) {
-        const int e0 = v * per;
-        float x[8];
-        if (e0 + per <= n) {
-          const uint4 u = reinterpret_cast<const uint4*>(base)[v];
-          if (sg.f32) {
-            const float4 f = *reinterpret_cast<const float4*>(&u);
-            x[0] = f.x, x[1] = f.y, x[2] = f.z, x[3] = f.w;
-          } else {
-            const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float2 f = __bfloat1622float2(b[i]);
-              x[2 * i] = f.x, x[2 * i + 1] = f.y;
-            }
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            x[j] = j < per && e0 + j < n ? (sg.f32 ? reinterpret_cast<const float*>(base)[e0 + j]
-                                                   : load_act<true>(base, e0 + j))
-                                         : 0.0f;
-        }
-        int r = e0 / w, c = e0 - r * w;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (j < per && e0 + j < n) {
-            H[wg::core_offset(r, c0 + c, TILE_M)] = __float2bfloat16_rn(x[j]);
-            if (++c == w) c = 0, ++r;
-          }
-        }
-      }
-    } else {
-      for (int e = tid; e < n; e += RB_CONSUMERS) {
-        const int r = e / w, c = e - r * w;
-        const float v = s == in.norm_seg ? nr[r * NRM + c]
-                        : sg.f32         ? reinterpret_cast<const float*>(base)[e]
-                                         : load_act<true>(base, e);
-        H[wg::core_offset(r, c0 + c, TILE_M)] = __float2bfloat16_rn(v);
-      }
-    }
-    c0 += w;
-  }
-  const int Kp = round_up(in.d0, 16), pad = Kp - in.d0;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-  for (int e = tid; e < (TILE_M - rows) * Kp; e += RB_CONSUMERS)  // the rows past N
-    H[wg::core_offset(rows + e / Kp, e % Kp, TILE_M)] = zero;
-  for (int e = tid; e < rows * pad; e += RB_CONSUMERS)  // the pad columns
-    H[wg::core_offset(e / pad, in.d0 + e % pad, TILE_M)] = zero;
-}
-
 // Pass 1. route (nblk x 256): column j of input block b goes to segment
 // route >> 16, column route & 0xffff (-1: no output).
 __global__ void __launch_bounds__(RB_THREADS, 1)
@@ -227,41 +152,12 @@ BWD_TC_NAME(kernel_ct)(const __grid_constant__ RadIn in, const __grid_constant__
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     if (tid < ktop && j < n_out) wt[j] = rnd<true>(P[d.woff[H] + tid * n_out + j]);
-  uint32_t k = 0;
   int m = 0;  // the next B operand of the ring
 
-  // acc <- A (64 x K, R = 64) times B operand m, columns [128 g, 128 g +
-  // 128): per weight stage a chain of wgmma.m64n128k16 into a fresh float32
-  // sum that the CUDA cores add into acc. live false: the stages are taken
-  // and released, no product (a block narrower than 128 g)
+  // acc <- A times B operand m of the ring (rb_products)
+  RbStream st{sm.w, &sm.ring, 0};
   auto products = [&](const __nv_bfloat16* A, float (&acc)[64], bool live) {
-    const int nslab = round_up(mats.k[m], 16) / 16;
-    const int nch = (nslab * 16 + RB_KC - 1) / RB_KC;
-    ++m;
-    float part[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.0f;
-    for (int j = 0; j < nch; ++j, ++k) {
-      sm.ring.acquire(k);
-      if (live) {
-        const __nv_bfloat16* w = sm.w[k % RB_STAGES];
-        wg::fence();
-#pragma unroll
-        for (int s = 0; s < RB_KC / 16; ++s) {
-          const int slab = j * (RB_KC / 16) + s;
-          if (slab < nslab) {
-            const uint64_t da = wg::desc(A + wg::core_offset(0, 16 * slab, TILE_M), 1024, 128);
-            const uint64_t db = wg::desc(w + s * 16 * 256 + wg::core_offset(128 * g, 0, 256), 4096, 128);
-            wg::wgmma_m64n128k16<0, 0>(part, da, db, s > 0 ? 1 : 0);
-          }
-        }
-        wg::commit();
-        wg::wait<0>();
-#pragma unroll
-        for (int i = 0; i < 64; ++i) acc[i] += part[i];
-      }
-      if (lane == 0) sm.ring.release(k);
-    }
+    rb_products(st, A, mats.k[m++], acc, live, g, lane);
   };
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -283,28 +179,14 @@ BWD_TC_NAME(kernel_ct)(const __grid_constant__ RadIn in, const __grid_constant__
     copy_out(sc.a[0] + (size_t)tile * TILE_M * sc.kap[0], sm.h, TILE_M * round_up(in.d0, 16),
              TILE_M * sc.kap[0]);
 
-    // ---- forward: Y_l = relu(rnd(rnd(A W_l) + rnd(b_l))) -----------------
-    const __nv_bfloat16* cur = sm.h;
-    for (int l = 0; l < H; ++l) {
-      float acc[64];
-      products(cur, acc, true);
-      __nv_bfloat16* Y = sm.y[l];
-#pragma unroll
-      for (int i = 0; i < 64; i += 2) {
-        const int r = wg::frag_row(t, i), c = 128 * g + wg::frag_col(t, i);
-        const float y0 = rnd<true>(rnd<true>(acc[i]) + sm.bias[l][c]);
-        const float y1 = rnd<true>(rnd<true>(acc[i + 1]) + sm.bias[l][c + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(&Y[wg::core_offset(r, c, TILE_M)]) =
-            __floats2bfloat162_rn(fmaxf(y0, 0.0f), fmaxf(y1, 0.0f));
-      }
-      wg::fence_async_smem();
-      wg::bar(1, RB_CONSUMERS);  // Y_l is complete; the products have read cur
+    // ---- forward: Y_l = relu(rnd(rnd(A W_l) + rnd(b_l))) (rb_forward) --------
+    rb_forward(st, sm.h, d, &sm.bias[0][0], sm.y, g, lane, t, [&](int l, const __nv_bfloat16* Y) {
       if (l + 1 < H) {  // A_{l+1}: Y_l's first kap columns
         const int n = TILE_M * sc.kap[l + 1];
         copy_out(sc.a[l + 1] + (size_t)tile * n, Y, n, n);
       }
-      cur = Y;
-    }
+    });
+    m = H;
 
     // ---- the top layer on the CUDA cores, in rad_backward's order --------
     __nv_bfloat16* top = sm.y[H - 1];

@@ -10,7 +10,8 @@ and returns ``cudaGetLastError()``; ``check`` raises on a non-zero code.
 
 ``launches[name]`` counts the launches of each kernel (``KERNELS``: one per
 source, and K1-PE apart from K1): a wrapper adds one right after its kernel
-was launched, and nowhere else.
+was launched, and nowhere else; ``reference_launches`` those of K2f's order
+reference.
 """
 
 from __future__ import annotations
@@ -42,13 +43,17 @@ KERNELS = SOURCES + ("sdf_mlp_pe",)
 SOURCE_OF = {**{name: name for name in SOURCES}, "sdf_mlp_pe": "sdf_mlp"}
 
 launches = {name: 0 for name in KERNELS}
+# launches of a kernel no model path runs: K2f's SIMT kernel at bf16, the
+# order reference of the render chunk's kernel (sdf_grad.sdf_mlp_with_grad_simt)
+reference_launches = {"sdf_grad_simt": 0}
 build_logs: dict = {}
 _libs: dict = {}
 
 
 def reset_launch_counts():
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, reference_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def nvcc_path() -> str:

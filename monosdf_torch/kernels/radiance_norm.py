@@ -27,9 +27,13 @@ Bound on the card: operations, narrowly (forward about 3.0e10 FLOP per
 100,352-sample batch with a 32-wide code, backward about three times that,
 against ~62 MB of operands and outputs, ~19 us at 3.35 TB/s). The forward
 keeps the 321-wide input row and the hidden layers in shared memory, so
-device memory sees each input once and each output once, and computes with
-float32 FMAs on the CUDA cores, as does the float32 backward. The bf16
-backward runs on the tensor cores in two passes (csrc/radiance_bwd_tc.cuh):
+device memory sees each input once and each output once. At bf16 it runs
+on the tensor cores (csrc/radiance_norm.cu ``radiance_norm_kernel_tc``: the
+body of K3b's pass-1 forward, csrc/radiance_tc.cuh, with its B operands
+packed once per call by ``pack_fwd``; the top layer on the CUDA cores in
+the SIMT kernel's order); float32 runs float32 FMAs on the CUDA cores, as
+does the float32 backward. The bf16 backward runs on the tensor cores in
+two passes (csrc/radiance_bwd_tc.cuh):
 pass 1 recomputes the trunk, runs the reverse sweep and writes dg, df and
 dc, storing the layers' bf16 inputs and cotangents in ``wgmma``'s layout
 (~230 MB of scratch at the step's shapes); pass 2 sums ``A^T CT`` over the
@@ -136,6 +140,14 @@ def input_blocks(widths, outputs):
 
 
 _routes: dict = {}  # (widths, outputs, device) -> the route table on the device
+FWD_MAX_HIDDEN = 8  # csrc/radiance_norm.cu RF_MAX_HIDDEN
+
+
+def pack_fwd(ws):
+    """K3f's bf16 B operands (csrc/radiance_norm.cu, radiance_tc.cuh): the
+    hidden layers' W_l in ring order, ``BWD_KC`` rows a stage, as the first
+    H operands of ``pack_bwd``; and each one's element offset."""
+    return pack_wgmma_b(ws[:-1], BWD_KC)
 
 
 def pack_bwd(ws, widths, outputs):
@@ -168,7 +180,13 @@ def _lib():
     lib.radiance_norm_launch.restype = ctypes.c_int
     lib.radiance_norm_launch.argtypes = [
         _c, _c, ctypes.c_int, _c, ctypes.c_int, _c, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), _c, _c, _c, ctypes.c_int, _c,
+        ctypes.POINTER(ctypes.c_int), _c, _c, _c, _c,
+    ]
+    lib.radiance_norm_tc_launch.restype = ctypes.c_int
+    lib.radiance_norm_tc_launch.argtypes = [
+        _c, _c, ctypes.c_int, _c, ctypes.c_int, _c, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), _c, _c, ctypes.POINTER(ctypes.c_int), _c, _c, ctypes.c_int,
+        _c,
     ]
     return lib
 
@@ -226,11 +244,20 @@ def _launch_forward(ws, bs, g, sv, feat, dtype, code):
     if N == 0:
         return rgb, nrm
     lib = _lib()
-    err = lib.radiance_norm_launch(
-        build.ptr(g), build.ptr(sv), ds, build.ptr(feat), F, opt_ptr(code), C, N, desc,
-        build.ptr(P), build.ptr(rgb), build.ptr(nrm), int(dtype is not None),
-        build.stream_ptr(dev),
-    )
+    if dtype is not None:  # the tensor cores
+        if len(ws) - 1 > FWD_MAX_HIDDEN:
+            raise ValueError(f"{len(ws) - 1} hidden layers > {FWD_MAX_HIDDEN}")
+        wb, offs = pack_fwd(ws)
+        err = lib.radiance_norm_tc_launch(
+            build.ptr(g), build.ptr(sv), ds, build.ptr(feat), F, opt_ptr(code), C, N, desc,
+            build.ptr(P), build.ptr(wb), _ints(offs), build.ptr(rgb), build.ptr(nrm),
+            build.num_sms(dev), build.stream_ptr(dev),
+        )
+    else:
+        err = lib.radiance_norm_launch(
+            build.ptr(g), build.ptr(sv), ds, build.ptr(feat), F, opt_ptr(code), C, N, desc,
+            build.ptr(P), build.ptr(rgb), build.ptr(nrm), build.stream_ptr(dev),
+        )
     build.check(lib, NAME, err)
     build.launches[NAME] += 1
     return rgb, nrm

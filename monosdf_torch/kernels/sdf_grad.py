@@ -38,12 +38,17 @@ on the tensor cores (csrc/sdf_grad.cu ``sdf_grad_kernel_tc``): K1's
 persistent two-warpgroup kernel with three more rows per point, each
 warpgroup's m64 tile 16 points in the stacked order, the weights packed
 once per call (``pack_fwd``: K1's packing and the last layer's feature
-columns). The render chunk (no Z) and float32 stay on the SIMT kernel,
-whose float32 FMA chains run in the plain version's order: the renders are
-held to the plain version at fixed samples, and the tangent rows turn any
-other summation order's float32 differences in z into gradient and normal
-differences 100x larger through sigmoid(100 z) (``PERF.md``). The backward
-runs in two passes on the tensor cores (``bwd_tc``,
+columns). The bf16 render chunk (no Z) runs on the CUDA cores
+(``sdf_grad_kernel_fma``): the renders are held to the plain version at
+fixed samples, and the tangent rows turn any other summation order's
+float32 differences in z into gradient and normal differences 100x larger
+through sigmoid(100 z) (``PERF.md``), so it keeps the SIMT kernel's FMA
+chains in their order and equals its outputs bit for bit, with 32-point
+tiles held in shared memory, 16 x 8 float32 sums a thread, and the weights
+rounded once per call (``pack_chunk``) and streamed through a ring of bulk
+copies. The SIMT kernel stays for float32 and, at bf16, as that order
+reference (``sdf_mlp_with_grad_simt``; no model path calls it). The
+backward runs in two passes on the tensor cores (``bwd_tc``,
 csrc/sdf_grad_bwd_tc.cuh, shared with K7b): the tile loop stores each
 layer's bf16 CT and input A, 64 rows a block in ``wgmma``'s operand layout
 (~3.7 GB of scratch at the bench's shapes), and a second kernel sums
@@ -212,6 +217,12 @@ def _lib():
         ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_float, ctypes.c_int, _c, _c, _c, _c,
         ctypes.POINTER(_c), ctypes.c_int, ctypes.c_int, _c,
     ]
+    lib.sdf_grad_fma_launch.restype = ctypes.c_int
+    lib.sdf_grad_fma_launch.argtypes = [
+        _c, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), _c, _c,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_float, ctypes.c_int, _c, _c, _c,
+        ctypes.c_int, _c,
+    ]
     return lib
 
 
@@ -329,12 +340,59 @@ def bwd_tc(name, ws, N, zs, cs, cf, cg, desc, out, x=None, multires=-1, flag=Non
     build.check(lib, name, err)
 
 
+CHUNK_KT = 16  # csrc/sdf_grad.cu FC_KT: weight rows per ring stage of the render chunk's kernel
+
+
+def pack_chunk(ws):
+    """The render chunk's weights (csrc/sdf_grad.cu ``sdf_grad_kernel_fma``):
+    each hidden layer's W_l, then the last layer's feature columns W_{L-1}[:,
+    1:], rounded to bf16 and held as float32 (the kernel's FMAs take them
+    as they are), rows zero-padded to a multiple of ``CHUNK_KT`` and columns
+    to 256, so a ring stage is one contiguous copy; then the SDF column
+    W_{L-1}[:, 0], rounded. Returns the buffer and the offsets (L + 1)."""
+    parts, offs, off = [], [], 0
+    for w in [*ws[:-1], ws[-1][:, 1:]]:
+        K, n = w.shape
+        full = torch.zeros(-(-K // CHUNK_KT) * CHUNK_KT, WG_N, dtype=torch.float32,
+                           device=w.device)
+        full[:K, :n] = round_to(w, torch.bfloat16)
+        parts.append(full.reshape(-1))
+        offs.append(off)
+        off += full.numel()
+    parts.append(round_to(ws[-1][:, 0], torch.bfloat16))
+    offs.append(off)
+    return torch.cat(parts), offs
+
+
 def _forward(ws, bs, x, multires, skip_in, dtype, bounding_sphere, sphere_scale, clamp_rows,
              save_z):
-    """K2f on a CUDA tensor, its plain version on a CPU tensor."""
+    """K2f on a CUDA tensor, its plain version on a CPU tensor. bf16: the
+    tensor-core kernel with ``save_z`` (training), else the render chunk's
+    kernel; float32: the SIMT kernel."""
     if x.device.type == "cpu":
         return sdf_mlp_with_grad_plain(ws, bs, x, multires, skip_in, dtype, bounding_sphere,
                                        sphere_scale, clamp_rows, save_z)
+    variant = "simt" if dtype is None else ("tc" if save_z else "chunk")
+    return _launch(ws, bs, x, multires, skip_in, dtype, bounding_sphere, sphere_scale,
+                   clamp_rows, save_z, variant)
+
+
+def sdf_mlp_with_grad_simt(ws, bs, x, multires: int, skip_in, dtype=None,
+                           bounding_sphere: float = 0.0, sphere_scale: float = 1.0,
+                           clamp_rows: int = -1):
+    """(sdf, feat, grad) from K2f's SIMT kernel, whatever the dtype: at bf16
+    the order reference of the render chunk's kernel, which must equal it
+    bit for bit. No model path calls this; its launches count in
+    ``build.reference_launches``. A CPU tensor takes the plain version."""
+    if x.device.type == "cpu":
+        return sdf_mlp_with_grad_plain(ws, bs, x, multires, tuple(skip_in), dtype,
+                                       bounding_sphere, sphere_scale, clamp_rows)
+    return _launch(ws, bs, x, multires, tuple(skip_in), dtype, bounding_sphere, sphere_scale,
+                   clamp_rows, False, "simt")
+
+
+def _launch(ws, bs, x, multires, skip_in, dtype, bounding_sphere, sphere_scale, clamp_rows,
+            save_z, variant):
     if dtype not in (None, torch.bfloat16):
         raise ValueError(f"dtype {dtype}: the kernel takes float32 or bfloat16")
     dev = x.device
@@ -345,10 +403,10 @@ def _forward(ws, bs, x, multires, skip_in, dtype, bounding_sphere, sphere_scale,
     check_mlp_dims(ws, tuple(skip_in), d0, last_max=257)
     P, desc = build.pack_mlp(ws, bs, tuple(skip_in))
     build.require(P, "weights", torch.float32, P.shape, dev)
-    wb, wb_off = None, [0]
-    if dtype is not None and save_z:  # the training variant: the tensor-core kernel
+    if variant != "simt":
         check_tc_widths(ws)
-        wb, wb_off = pack_fwd(ws)
+    if variant == "chunk" and (len(ws) >= build.MAX_LAYERS or 0 in skip_in):
+        raise ValueError("the render chunk's kernel takes up to 15 layers, no skip at layer 0")
     act = dtype or torch.float32
     sdf = torch.empty(N, 1, dtype=torch.float32, device=dev)
     feat = torch.empty(N, F, dtype=act, device=dev)
@@ -358,15 +416,27 @@ def _forward(ws, bs, x, multires, skip_in, dtype, bounding_sphere, sphere_scale,
     zs = [torch.empty(4, N, w.shape[1], dtype=act, device=dev) for w in ws[:-1]] if save_z else []
     if N > 0:
         lib = _lib()
-        err = lib.sdf_grad_launch(
-            build.ptr(x), N, multires, desc, build.ptr(P),
-            build.ptr(wb) if wb is not None else None, _ints(wb_off), float(bounding_sphere),
-            float(sphere_scale), int(clamp_rows), build.ptr(sdf), build.ptr(feat),
-            build.ptr(grad), build.ptr(flag) if flag is not None else None, _z_ptrs(zs),
-            int(dtype is not None), build.num_sms(dev), build.stream_ptr(dev),
-        )
+        if variant == "chunk":
+            wc, wc_off = pack_chunk(ws)
+            err = lib.sdf_grad_fma_launch(
+                build.ptr(x), N, multires, desc, build.ptr(P), build.ptr(wc), _ints(wc_off),
+                float(bounding_sphere), float(sphere_scale), int(clamp_rows), build.ptr(sdf),
+                build.ptr(feat), build.ptr(grad), build.num_sms(dev), build.stream_ptr(dev),
+            )
+        else:
+            wb, wb_off = pack_fwd(ws) if variant == "tc" else (None, [0])
+            err = lib.sdf_grad_launch(
+                build.ptr(x), N, multires, desc, build.ptr(P),
+                build.ptr(wb) if wb is not None else None, _ints(wb_off), float(bounding_sphere),
+                float(sphere_scale), int(clamp_rows), build.ptr(sdf), build.ptr(feat),
+                build.ptr(grad), build.ptr(flag) if flag is not None else None, _z_ptrs(zs),
+                int(dtype is not None), build.num_sms(dev), build.stream_ptr(dev),
+            )
         build.check(lib, NAME, err)
-        build.launches[NAME] += 1
+        if variant == "simt" and dtype is not None:
+            build.reference_launches["sdf_grad_simt"] += 1
+        else:
+            build.launches[NAME] += 1
     return (sdf, feat, grad, flag, zs) if save_z else (sdf, feat, grad)
 
 

@@ -9,8 +9,9 @@ bf16 and sum in float32 (``kernels/sdf_grad.py``, ``kernels/sdf_grad_grid.py``).
 The reference here computes the same function with the same rounding points
 and float64 sums, so a bf16 value that differs from it was moved by the
 rounding of a float32 sum. For the training variant (the tensor-core kernel,
-which writes Z), the render chunk's kernel (no Z: K2f's SIMT kernel, K7f's
-tensor-core kernel) and the plain version, on seeded points in the 1.1 box,
+which writes Z), the render chunk's kernel (no Z: K2f's CUDA-core kernel,
+which gives its SIMT kernel's bits; K7f's tensor-core kernel) and the plain
+version, on seeded points in the 1.1 box,
 without the sphere clamp, with the model's seeded init plus 0.01 noise (as
 ``chip_smoke.py`` perturbs it); the grid model's layer-0 input [PE |
 features] and its tangents come from its hash encode

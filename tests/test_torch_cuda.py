@@ -312,6 +312,86 @@ def test_k4_matches_plain(dev, dtype, N):
         assert ((pk - ppl).abs() <= atol + rtol * ppl.abs()).all()
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _sdf_trunk(dev, which):
+    """(ws, bs, multires, skip_in, bounding sphere) of an SDF trunk: the
+    small test trunk (48 wide, skip at 2, with a 1.1 clamp), or at full
+    width the bench's MLP model's (8x256, skip at 4, PE(6), its 1.1 clamp)
+    or the union model's (its own init, no clamp), each plus seeded noise."""
+    from monosdf_torch.cli.eval import bench_mlp_config, union_codes_config
+
+    cfg = {"small": IMP, "mlp": bench_mlp_config().implicit,
+           "union": union_codes_config().implicit}[which]
+    gen = torch.Generator().manual_seed(7)
+    imp = init_implicit_net(cfg, gen)
+    with torch.no_grad():
+        for p in imp.parameters():
+            p.add_(0.01 * torch.randn(p.shape, generator=gen))
+    ws, bs = (list(t.detach() for t in ts) for ts in effective_linear_weights(imp.to(dev)))
+    sphere = 1.1 if which == "small" else cfg.sdf_bounding_sphere
+    return ws, bs, cfg.multires, cfg.skip_in, sphere
+
+
+# the render chunk's kernel (32-point tiles, one persistent CTA per SM)
+# against its order reference: 700 points (22 tiles, the last ragged: 28
+# points) and 8,461 (265 tiles, more than the card has SMs, so the tile
+# loop wraps; the last 13 points)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [700, 8461])
+@pytest.mark.parametrize("which", ["small", "mlp", "union"])
+def test_k2f_render_chunk_kernel_equals_its_simt_reference(dev, which, n):
+    """K2f's bf16 render chunk (no Z) gives the SIMT kernel's sdf, feat and
+    grad bit for bit; one launch counted as sdf_grad, one as the order
+    reference."""
+    from monosdf_torch.kernels.sdf_grad import sdf_mlp_with_grad_simt
+
+    ws, bs, multires, skip_in, sphere = _sdf_trunk(dev, which)
+    x = _rand(dev, n, 3, lo=-1.3, hi=1.3, seed=4)
+    before = dict(build.launches)
+    ref_before = dict(build.reference_launches)
+    with torch.no_grad():
+        args = (ws, bs, x, multires, skip_in, torch.bfloat16, sphere, 1.0)
+        out = sdf_mlp_with_grad(*args)
+        ref = sdf_mlp_with_grad_simt(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.isfinite(a.float()).all()
+        assert torch.equal(_bits(a), _bits(b)), (a.float() - b.float()).abs().max().item()
+    if sphere > 0.0:  # the clamp fired on some points and not on others
+        sq = sphere - x.norm(dim=-1, keepdim=True)
+        assert 0 < int(((out[0] - sq).abs() < 1e-6).sum()) < n
+    assert build.launches["sdf_grad"] - before["sdf_grad"] == 1
+    assert build.reference_launches["sdf_grad_simt"] - ref_before["sdf_grad_simt"] == 1
+    _check(out, sdf_mlp_with_grad_plain(*args), torch.bfloat16)
+
+
+# K3f's bf16 kernel (the tensor cores, 64-row tiles on one persistent CTA
+# per SM): 700 rows (11 tiles, the last ragged: 60 rows) and 16,901 (265
+# tiles, more than the card has SMs; the last 5 rows), with and without the
+# per-image code
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [700, 16901])
+@pytest.mark.parametrize("code_dim", [0, 8])
+def test_k3f_tensor_cores_match_plain(dev, code_dim, n):
+    ws, bs, g, sv, feat, code, _, _ = _radiance_case(dev, code_dim=code_dim or 8, n=n)
+    if code_dim == 0:  # the trunk without the code's W0 rows
+        ws = [ws[0][:-8].contiguous(), *ws[1:]]
+        code = None
+    before = dict(build.launches)
+    with torch.no_grad():
+        out = radiance_norm(ws, bs, g, sv, feat, torch.bfloat16, code)
+        ref = radiance_norm_plain(ws, bs, g, sv, feat, torch.bfloat16, code)
+        again = radiance_norm(ws, bs, g, sv, feat, torch.bfloat16, code)
+    torch.cuda.synchronize()
+    _check(out, ref, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert build.launches["radiance_norm"] - before["radiance_norm"] == 2
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     imp, ren = _nets(dev)

@@ -211,6 +211,91 @@ def test_bf16_weight_packer_reads_back_every_layer(case):
         assert torch.equal(_mirror_read(wb, offs[l], *m.shape, kc), m.bfloat16().float()), l
 
 
+@pytest.mark.parametrize("case", ["k2f-chunk-small-27", "k2f-chunk-mlp-39", "k2f-chunk-union-39",
+                                  "k3f-radiance-289", "k3f-radiance-321"])
+def test_render_chunk_and_k3f_weight_packers_read_back(case):
+    """K2f's render chunk kernel's weights (``pack_chunk``: each hidden W_l,
+    then the last layer's feature columns, as float32 of their bf16
+    roundings, 16-row ring stages of 256 columns, zero-padded; then the SDF
+    column) for a 48-wide test trunk (27-wide input, padded to 32) and the
+    bench's and the union model's 8x256 trunks; K3f's bf16 B operands
+    (``pack_fwd``: W_0 and W_1, read back through the mirror of the kernels'
+    shared-memory addressing) for the 289-wide and the 321-wide (with
+    codes) radiance input, the first operands of K3b's ``pack_bwd``."""
+    from monosdf_torch.cli.eval import bench_mlp_config, union_codes_config
+
+    if case.startswith("k3f"):
+        from monosdf_torch.kernels.radiance_norm import BWD_KC, pack_bwd, pack_fwd
+
+        d0 = int(case[-3:])
+        cfg = (union_codes_config() if d0 == 321 else bench_mlp_config()).rendering
+        ren = tf.init_rendering_net(cfg, torch.Generator().manual_seed(0))
+        ws = [w.detach() for w in tf.effective_linear_weights(ren)[0]]
+        assert ws[0].shape[0] == d0
+        wb, offs = pack_fwd(ws)
+        assert len(offs) == len(ws) - 1
+        for l, w in enumerate(ws[:-1]):
+            assert torch.equal(_mirror_read(wb, offs[l], *w.shape, BWD_KC), w.bfloat16().float())
+        C = cfg.code_dim if cfg.per_image_code else 0
+        widths = (d0 - 3 - cfg.feature_vector_size - C, 3, cfg.feature_vector_size, C)
+        wb_bwd, offs_bwd = pack_bwd(ws, widths, (1, 2, 3) if C else (1, 2))[:2]
+        assert offs_bwd[:len(offs)] == offs and torch.equal(wb, wb_bwd[:wb.numel()])
+        return
+    from monosdf_torch.kernels.sdf_grad import CHUNK_KT, pack_chunk
+
+    which = case.split("-")[2]
+    cfg = {"small": tf.ImplicitNetConfig(feature_vector_size=32, dims=(48,) * 4, skip_in=(2,),
+                                         multires=4),
+           "mlp": bench_mlp_config().implicit, "union": union_codes_config().implicit}[which]
+    imp = tf.init_implicit_net(cfg, torch.Generator().manual_seed(0))
+    ws = [w.detach() for w in tf.effective_linear_weights(imp)[0]]
+    assert ws[0].shape[0] == int(case[-2:])
+    wc, offs = pack_chunk(ws)
+    L = len(ws)
+    assert wc.dtype == torch.float32 and len(offs) == L + 1
+    for l, m in enumerate([*ws[:-1], ws[-1][:, 1:]]):
+        K, n = m.shape
+        kp = -(-K // CHUNK_KT) * CHUNK_KT
+        assert offs[l] % (CHUNK_KT * k1.WG_N) == 0  # whole stages, 16-byte aligned
+        blk = wc[offs[l]:offs[l] + kp * k1.WG_N].view(kp, k1.WG_N)
+        assert torch.equal(blk[:K, :n], m.bfloat16().float()), l
+        assert not blk[K:].any() and not blk[:, n:].any()
+    assert offs[L] == wc.numel() - ws[-1].shape[0]
+    assert torch.equal(wc[offs[L]:], ws[-1][:, 0].bfloat16().float())
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_k2f_simt_reference_takes_plain_on_cpu(dtype):
+    """K2f's order reference (the SIMT kernel on a card) is the plain
+    version on a CPU tensor, as the main wrapper is, and launches nothing."""
+    from monosdf_torch.kernels.sdf_grad import sdf_mlp_with_grad_simt
+
+    cfg = tf.ImplicitNetConfig(feature_vector_size=32, dims=(48,) * 4, skip_in=(2,), multires=4)
+    imp = tf.init_implicit_net(cfg, torch.Generator().manual_seed(0))
+    ws, bs = ([t.detach() for t in ts] for ts in tf.effective_linear_weights(imp))
+    x = torch.from_numpy(np.random.default_rng(0).uniform(-1.3, 1.3, (37, 3)).astype(np.float32))
+    args = (ws, bs, x, cfg.multires, cfg.skip_in, dtype, 1.1, 1.0)
+    before, ref_before = dict(build.launches), dict(build.reference_launches)
+    out = sdf_mlp_with_grad_simt(*args)
+    for a, b, c in zip(out, sdf_mlp_with_grad(*args), sdf_mlp_with_grad_plain(*args)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert build.launches == before and build.reference_launches == ref_before
+
+
+def test_reset_launch_counts_clears_the_reference_count():
+    """The smoke counts each main path from 0: the reset clears the kernels'
+    counts and the order reference's."""
+    saved = dict(build.launches), dict(build.reference_launches)
+    try:
+        build.launches["sdf_grad"] += 3
+        build.reference_launches["sdf_grad_simt"] += 2
+        build.reset_launch_counts()
+        assert not any(build.launches.values()) and build.reference_launches == {"sdf_grad_simt": 0}
+    finally:
+        build.launches.update(saved[0])
+        build.reference_launches.update(saved[1])
+
+
 def _check_k3b_packing(d0):
     from monosdf_torch.cli.eval import bench_mlp_config, union_codes_config
     from monosdf_torch.kernels.radiance_norm import BWD_KC, pack_bwd
