@@ -60,7 +60,7 @@ through K3 and through K8a. Phases (any failure exits non-zero):
    profile of one step; then the same with --rgb_backend pallas (K8a in
    K3's place: K1 = K4 = 5, K2f = K8a = 1 per chunk, K2b = K8a's backward
    = 1 more per step, K3 0): a render, the steps, the step check, a
-   profile;
+   profile of a chunk and of a step;
 9. the nerf radiance check: fields.rendering_apply_pallas in nerf mode with
    codes (K8b on [view PE | features | code], 315 wide) at 100,352 samples,
    forward and backward through autograd, against rendering_apply, in
@@ -157,7 +157,7 @@ PATHS = {
 SWEEPS = ("sdf_mlp", "sdf_mlp_pe", "sampler_machinery")  # the sampler's kernels
 # the libraries whose bf16 kernels run on the tensor cores (wgmma: HGMMA in SASS)
 TENSOR_CORE_LIBS = ("sdf_mlp", "sdf_grad", "sdf_grad_bwd", "sdf_grad_grid_bwd", "radiance_norm_bwd",
-                    "sdf_grad_grid", "radiance_norm")
+                    "sdf_grad_grid", "radiance_norm", "radiance_split", "radiance_split_bwd")
 WARMUP_STEPS, TIMED_STEPS = 3, 20
 # stated tolerances, kernel vs plain version on the card: err <= atol + rtol * max|plain|;
 # bf16: a rounding that lands on the neighbouring bf16 value (ulp 2^-7 at 1)
@@ -1263,11 +1263,12 @@ def _profile(fn, reps: int, what: str) -> dict:
         if not any(n in k for n in names):
             other[k[:60]] = other.get(k[:60], 0.0) + v
     # the tensor-core kernels' parts: K1's, K2f's (and its render chunk's
-    # CUDA-core kernel), K7f's and K3f's bf16 kernels, K2b's, K7b's and
-    # K3b's two passes and their sums
+    # CUDA-core kernel), K7f's, K3f's and K8a's bf16 kernels, K2b's, K7b's,
+    # K3b's and K8a's two passes and their sums
     parts = ("sdf_mlp_kernel_tc", "sdf_grad_kernel_tc", "sdf_grad_kernel_fma", "sdf_grad_grid_kernel_tc",
-             "radiance_norm_kernel_tc",
-             *(f"{n}_kernel_{p}" for n in ("sdf_grad_bwd", "sdf_grad_grid_bwd", "radiance_norm_bwd")
+             "radiance_norm_kernel_tc", "radiance_split_kernel_tc",
+             *(f"{n}_kernel_{p}" for n in ("sdf_grad_bwd", "sdf_grad_grid_bwd", "radiance_norm_bwd",
+                                           "radiance_split_bwd")
                for p in ("ct", "dw", "sums")))
     kern_parts = {n: sum(v for k, v in per_name.items() if n in k) for n in parts}
     return {"ms": ms, "device_busy_ms": busy, "busy_share": busy / ms, "kernels_ms": kern,
@@ -1625,9 +1626,9 @@ def main(argv):
         suffix = PATHS[which][0]
         rinfo, runs = render_phase(dev, which)
         tinfo, train_run = train_phase(dev, which)
-        # render profiles of the bench models and the union model (K3); one
-        # step of every model
-        profile_phase(runs if which in ("mlp", "grids", "codes") else {}, rinfo, train_run, tinfo,
+        # render profiles of the bench models and the union model (K3, and
+        # K8a with 'pallas'); one step of every model
+        profile_phase(runs if which != "pe" else {}, rinfo, train_run, tinfo,
                       suffix.replace("_", " "))
         lines[f"render{suffix}"], lines[f"train{suffix}"] = rinfo, tinfo
         del runs, train_run

@@ -2,6 +2,9 @@
 // radiance_norm_bwd.cu, the gradient normalised in-kernel), K8a
 // (radiance_split.cu, radiance_split_bwd.cu, the raw gradient as an operand)
 // and K8b (radiance_mlp.cu, radiance_mlp_bwd.cu, one concatenated input).
+// Its SIMT kernels below run K3's and K8a's float32 paths and both of
+// K8b's; K3's and K8a's bf16 paths run on the tensor cores
+// (radiance_tc.cuh, radiance_bwd_tc.cuh) with the same segments (RadIn).
 //
 // The layer-0 input row is assembled in shared memory from up to four
 // column segments (RadIn), each read from device memory once: K3 and K8a
@@ -19,10 +22,9 @@
 // normals. The hidden layers alternate between the hidden buffer and the
 // input row's space, which is free once layer 0 has read it.
 //
-// The SIMT backward (K8a's and K8b's, and K3b's float32 path; K3b's bf16
-// path runs on the tensor cores, radiance_bwd_tc.cuh) runs a persistent
-// grid (one float32 dW partial per block, summed by reduce_partials in
-// block order); it recomputes the hidden layers, keeps at most two of
+// The SIMT backward (K8b's, and K3b's and K8a's float32 paths) runs a
+// persistent grid (one float32 dW partial per block, summed by
+// reduce_partials in block order); it recomputes the hidden layers, keeps at most two of
 // them, and runs the reverse sweep in place over them: the top
 // cotangent co (float32 or the operand type, as given) gives db from its
 // unrounded values and dW and the propagation from its rounded ones; each

@@ -1,9 +1,14 @@
-// The tensor-core backward of the radiance ReLU trunk: K3b's bf16 path
-// (radiance_norm_bwd.cu). The including file defines BWD_TC_NAME(part), the
-// kernels' names, and includes radiance.cuh first. The segments of the
-// layer-0 input (RadIn, RadOut) and the normalise step are K3b's here; the
-// trunk's passes do not depend on them, so K8a's and K8b's backward can
-// take the same passes with their own segments.
+// The tensor-core backward of the radiance ReLU trunk: the bf16 paths of
+// K3b (radiance_norm_bwd.cu) and K8a (radiance_split_bwd.cu). The including
+// file defines BWD_TC_NAME(part), the kernels' names, and includes
+// radiance.cuh first. The trunk's passes do not depend on the segments of
+// the layer-0 input (RadIn, RadOut), which each kernel gives:
+// - K3b: [sv bf16 | n normalised in-kernel from g | feat | code f32], a
+//   bf16 top cotangent co and the normals' cotangent cn, dg from the
+//   normalise backward;
+// - K8a: [sv f32 | n the raw gradient, f32 | feat | code f32], a float32
+//   co, no cn and no normalise step (norm_seg < 0): the normals' columns of
+//   CT_0 W0^T are dn itself, stored float32 as the other segments are.
 //
 // K2b's two passes (sdf_grad_bwd_tc.cuh) on a plain ReLU trunk, one row
 // per sample:
@@ -19,17 +24,19 @@
 //       rb_forward; its comment gives the design), with h0 and Y_l stored
 //       for pass 2 after each layer;
 //     - the top layer on the CUDA cores, one thread per column of Y_{H-1}:
-//       dW_H = Y_{H-1}^T rnd(co) and db_H from co, CT_{H-1} = (rnd(co)
-//       W_H^T)[Y_{H-1} > 0] with db_{H-1} from its float32 values, all in
-//       the SIMT kernel's (rad_backward's) order; CT is rounded in place;
+//       dW_H = Y_{H-1}^T rnd(co) and db_H from the unrounded co (K8a's
+//       float32 co is kept both ways; K3b's is bf16, so the two coincide),
+//       CT_{H-1} = (rnd(co) W_H^T)[Y_{H-1} > 0] with db_{H-1} from its
+//       float32 values, all in the SIMT kernel's (rad_backward's) order;
+//       CT is rounded in place;
 //     - CT_{l-1} = (CT_l W_l^T)[Y_{l-1} > 0] on the tensor cores, db_{l-1}
 //       from the float32 values (a fixed-order column sum: shuffles over a
 //       warp's rows, then the four warps in order), rounded in place;
 //     - the input cotangents CT_0 W0^T for the columns that have an output,
-//       block by block (K3b: the features' 256 columns, then the normals'
-//       3 and the code's C): df and dc from the registers, the normals'
-//       columns into shared memory for the normalise backward, which stays
-//       as rad_backward has it;
+//       block by block (the features' 256 columns, then the normals' 3 and
+//       the code's C): df, dc (and K8a's dn) from the registers; K3b's
+//       normals' columns into shared memory for the normalise backward,
+//       which stays as rad_backward has it;
 //     - h0, Y_l (l < H - 1) and CT_l (l < H) go to device memory in wgmma's
 //       layout, 64 rows a block, for pass 2: ~2.3 KB a row, written once
 //       and read once (~230 MB at the step's 100,352 rows);
@@ -42,10 +49,11 @@
 // CT is rounded to bf16 before both products, as in the SIMT kernel, so the
 // tensor cores compute its function; the float32 sums change only in order.
 //
-// Shared memory (224 KB of 227): the ring (3 x 32 KB), h0 (64 x 336 bf16,
+// Shared memory (225 KB of 227): the ring (3 x 32 KB), h0 (64 x 336 bf16,
 // 42 KB), two hidden layers (64 x 256 bf16 each, 64 KB; each turns into its
 // cotangent in place), the biases (2 KB), the CTA's partial (6 KB), the
-// column-sum exchange (4 KB) and the rows' normals, co, cn and dn (5 KB).
+// column-sum exchange (4 KB) and the rows' normals, co (rounded and not),
+// cn and dn (6 KB).
 // No float32 tile is kept: the epilogues run on the sums in registers.
 #pragma once
 
@@ -67,7 +75,8 @@ struct RadBwdSmem {
   float part[RB_SMALL];
   float red[RB_CONSUMER_WARPS][128];           // per warp: its rows' column sums
   float nr[TILE_M * NRM];                      // rad_normals' per-row scratch
-  float co[TILE_M * 4];                        // the top cotangent
+  float co[TILE_M * 4];                        // the top cotangent, rounded to bf16
+  float cou[TILE_M * 4];                       // the top cotangent as given
   float cn[TILE_M * 4];                        // the normals' cotangent
   float dn[TILE_M * 4];                        // the normals' columns of CT_0 W0^T
   wg::Ring<RB_STAGES> ring;
@@ -115,7 +124,7 @@ __global__ void __launch_bounds__(RB_THREADS, 1)
 BWD_TC_NAME(kernel_ct)(const __grid_constant__ RadIn in, const __grid_constant__ RadOut o, int N,
                        const __grid_constant__ MlpDesc d, const float* __restrict__ P,
                        const __nv_bfloat16* __restrict__ Wb, const __grid_constant__ RadMats mats,
-                       const int* __restrict__ route, const __nv_bfloat16* __restrict__ co,
+                       const int* __restrict__ route, const void* __restrict__ co, int co_f32,
                        const __nv_bfloat16* __restrict__ cn, float* __restrict__ dg_out,
                        const __grid_constant__ Scratch sc, float* __restrict__ part1,
                        int n_small) {
@@ -165,11 +174,20 @@ BWD_TC_NAME(kernel_ct)(const __grid_constant__ RadIn in, const __grid_constant__
     m = 0;
     wg::bar(1, RB_CONSUMERS);  // the previous tile is done with shared memory
     rad_normals(in, N, row0, sm.nr);
-    {  // the rows' cotangents: co (n_out) and cn (3), one entry a thread
+    {  // the rows' cotangents: co (n_out; float32 or bf16) and cn (3, when
+       // given), one entry a thread
       const int r = tid >> 2, j = tid & 3;
       const bool ok = row0 + r < N;
-      sm.co[tid] = ok && j < n_out ? __bfloat162float(co[(size_t)(row0 + r) * n_out + j]) : 0.0f;
-      sm.cn[tid] = ok && j < 3 ? __bfloat162float(cn[(size_t)(row0 + r) * 3 + j]) : 0.0f;
+      float v = 0.0f;
+      if (ok && j < n_out) {
+        const size_t i = (size_t)(row0 + r) * n_out + j;
+        v = co_f32 ? static_cast<const float*>(co)[i]
+                   : __bfloat162float(static_cast<const __nv_bfloat16*>(co)[i]);
+      }
+      sm.cou[tid] = v;
+      sm.co[tid] = rnd<true>(v);
+      sm.cn[tid] = cn != nullptr && ok && j < 3 ? __bfloat162float(cn[(size_t)(row0 + r) * 3 + j])
+                                                : 0.0f;
     }
     wg::bar(1, RB_CONSUMERS);
 
@@ -216,7 +234,7 @@ BWD_TC_NAME(kernel_ct)(const __grid_constant__ RadIn in, const __grid_constant__
     }
     if (tid < n_out) {
       float s = 0.0f;
-      for (int r = 0; r < TILE_M; ++r) s += sm.co[r * 4 + tid];
+      for (int r = 0; r < TILE_M; ++r) s += sm.cou[r * 4 + tid];
       sm.part[rb_db(d, H) + tid] += s;
     }
     wg::fence_async_smem();
@@ -380,21 +398,40 @@ __global__ void BWD_TC_NAME(kernel_sums)(MlpDesc d, const __grid_constant__ Scra
 // n_small floats), pass 2 on one CTA per job (part2: jobs x 128 x 256
 // floats, jobs = the A_l blocks' 128-column slices x splits), then the
 // ordered sums into out (n_out threads: the larger of n_small and the
-// pass-2 weights).
-inline int rad_bwd_tc_launch(const RadIn& in, const RadOut& o, int N, const MlpDesc& d,
-                             const float* P, const void* Wb, const RadMats& mats, const int* route,
-                             const void* co, const void* cn, float* dg_out, const Scratch& sc,
-                             float* part1, int grid1, int n_small, float* part2, int splits,
-                             int n_out, float* out, cudaStream_t s) {
+// pass-2 weights). Wb: the packed B operands, mat_off / mat_k their offsets
+// and depths (n_mats, the last n_blk the input blocks), route (n_blk x 256)
+// their columns' outputs; ct / a / kap: pass 2's scratch per layer. co:
+// float32 (co_f32) or bf16; cn and dg_out: K3b's (null without a
+// normalise step).
+inline int rad_bwd_tc_launch(const RadIn& in, const RadOut& o, int N, const int* desc,
+                             const float* P, const void* Wb, const int* mat_off, const int* mat_k,
+                             int n_mats, int n_blk, const int* route, const void* co, int co_f32,
+                             const void* cn, float* dg_out, void* const* ct, void* const* a,
+                             const int* kap, float* part1, int grid1, int n_small, float* part2,
+                             int splits, int n_out, float* out, void* stream) {
+  const MlpDesc d = desc_from(desc);
   const int H = d.n_layers - 1;
+  RadMats mats{};
+  mats.n = n_mats;
+  mats.nblk = n_blk;
+  for (int m = 0; m < n_mats && m < RB_MAX_MATS; ++m) {
+    mats.off[m] = mat_off[m];
+    mats.k[m] = mat_k[m];
+  }
+  Scratch sc{};
+  for (int l = 0; l < MK_MAX_LAYERS; ++l) {
+    sc.ct[l] = static_cast<__nv_bfloat16*>(ct[l]);
+    sc.a[l] = static_cast<__nv_bfloat16*>(a[l]);
+    sc.kap[l] = kap[l];
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   int jobs = 0;
   for (int l = 0; l < H; ++l) jobs += sc.kap[l] / 128 * splits;
   const size_t smem1 = sizeof(RadBwdSmem), smem2 = sizeof(Pass2Smem);
   cudaFuncSetAttribute(BWD_TC_NAME(kernel_ct), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   BWD_TC_NAME(kernel_ct)<<<grid1, RB_THREADS, smem1, s>>>(
-      in, o, N, d, P, static_cast<const __nv_bfloat16*>(Wb), mats, route,
-      static_cast<const __nv_bfloat16*>(co), static_cast<const __nv_bfloat16*>(cn), dg_out, sc,
-      part1, n_small);
+      in, o, N, d, P, static_cast<const __nv_bfloat16*>(Wb), mats, route, co, co_f32,
+      static_cast<const __nv_bfloat16*>(cn), dg_out, sc, part1, n_small);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   if (jobs > 0) {

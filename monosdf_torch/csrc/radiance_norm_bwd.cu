@@ -89,35 +89,20 @@ extern "C" int radiance_norm_bwd_launch(const float* g, const void* sv, int ds, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16: the two tensor-core passes. Wb: the packed B operands, mat_off /
-// mat_k their offsets and depths (n_mats, the last n_blk the input blocks),
-// route (n_blk x 256) their columns' outputs; ct / a / kap: pass 2's scratch
-// per layer (radiance_bwd_tc.cuh).
+// bf16: the two tensor-core passes (radiance_bwd_tc.cuh rad_bwd_tc_launch,
+// whose comment names the arguments), co and cn bf16
 extern "C" int radiance_norm_bwd_tc_launch(
     const float* g, const void* sv, int ds, const void* feat, int F, const float* code, int C,
     int N, const int* desc, const float* P, const void* Wb, const int* mat_off, const int* mat_k,
     int n_mats, int n_blk, const int* route, const void* co, const void* cn, float* dg_out,
     void* df_out, float* dc_out, void* const* ct, void* const* a, const int* kap, float* part1,
     int grid1, int n_small, float* part2, int splits, int n_out, float* out, void* stream) {
-  const MlpDesc d = desc_from(desc);
   RadIn in;
   RadOut o;
   k3_segments(g, sv, ds, feat, F, code, C, df_out, dc_out, in, o);
-  RadMats mats{};
-  mats.n = n_mats;
-  mats.nblk = n_blk;
-  for (int m = 0; m < n_mats && m < RB_MAX_MATS; ++m) {
-    mats.off[m] = mat_off[m];
-    mats.k[m] = mat_k[m];
-  }
-  Scratch sc{};
-  for (int l = 0; l < MK_MAX_LAYERS; ++l) {
-    sc.ct[l] = static_cast<__nv_bfloat16*>(ct[l]);
-    sc.a[l] = static_cast<__nv_bfloat16*>(a[l]);
-    sc.kap[l] = kap[l];
-  }
-  return rad_bwd_tc_launch(in, o, N, d, P, Wb, mats, route, co, cn, dg_out, sc, part1, grid1,
-                           n_small, part2, splits, n_out, out, static_cast<cudaStream_t>(stream));
+  return rad_bwd_tc_launch(in, o, N, desc, P, Wb, mat_off, mat_k, n_mats, n_blk, route, co, 0, cn,
+                           dg_out, ct, a, kap, part1, grid1, n_small, part2, splits, n_out, out,
+                           stream);
 }
 
 MK_ERROR_STRING_EXPORT

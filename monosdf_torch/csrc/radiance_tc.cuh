@@ -1,14 +1,16 @@
-// The tensor-core forward of the radiance ReLU trunk, shared by K3f's bf16
-// forward (radiance_norm.cu) and K3b's pass 1 (radiance_bwd_tc.cuh), which
-// recomputes it. The including file includes radiance.cuh first.
+// The tensor-core forward of the radiance ReLU trunk, shared by the bf16
+// forwards of K3f (radiance_norm.cu) and K8a (radiance_split.cu), whose
+// whole kernel body is rb_trunk_forward, and by the backward's pass 1
+// (radiance_bwd_tc.cuh, K3b and K8a), which recomputes it. The including
+// file includes radiance.cuh first.
 //
 // A persistent CTA per SM walks 64-row tiles (one row per sample) with two
 // consumer warpgroups and a producer warp that streams the bf16 B operands
 // (W_l, packed once per call: kernels/radiance_norm.py pack_fwd, pack_bwd),
 // 64 rows a stage, through a 3-stage ring of bulk copies. Per tile:
-// - the input row h0 = [sv | n | feat | code] (n = g / q as rad_normals
-//   computes it) is built in shared memory at bf16 in wgmma's layout, 16
-//   bytes a read (rb_build_h0);
+// - the input row h0 = [sv | n | feat | code] (K3: n = g / q as
+//   rad_normals computes it; K8a: the raw gradient) is built in shared
+//   memory at bf16 in wgmma's layout, 16 bytes a read (rb_build_h0);
 // - Y_l = relu(rnd(rnd(A W_l) + rnd(b_l))): each warpgroup takes 128 of the
 //   256 output columns (wgmma.m64n128k16 over the whole tile); per 64-deep
 //   weight stage a fresh float32 sum on the tensor cores, which the CUDA
@@ -170,3 +172,124 @@ __device__ __forceinline__ void rb_build_h0(__nv_bfloat16* H, const RadIn& in, c
     H[wg::core_offset(e / pad, in.d0 + e % pad, TILE_M)] = zero;
 }
 
+namespace {
+
+constexpr int RF_MAX_HIDDEN = 8;
+
+struct RadFwdSmem {
+  __nv_bfloat16 w[RB_STAGES][RB_CHUNK];      // the ring of B operands
+  __nv_bfloat16 h[TILE_M * LDH];             // h0, the A operand (R = 64)
+  __nv_bfloat16 y[2][TILE_M * 256];          // the hidden layers, alternating
+  float bias[RF_MAX_HIDDEN][256];            // the hidden biases, bf16-rounded
+  float wt[256 * 4];                         // the top layer's W, rounded: (k, j) at 4 k + j
+  float nr[TILE_M * NRM];                    // rad_normals' per-row scratch
+  wg::Ring<RB_STAGES> ring;
+};
+static_assert(sizeof(RadFwdSmem) <= 232448, "a CTA's shared memory is 227 KB");
+
+}  // namespace
+
+// off[l]: the element offset in Wb of W_l's packed B operand (l < H)
+struct RadFwdWb {
+  int off[MK_MAX_LAYERS];
+};
+
+// The bf16 forward kernel's body (RB_THREADS threads, sizeof(RadFwdSmem)
+// bytes of dynamic shared memory, persistent CTAs over 64-row tiles): per
+// tile, K3's normals (in.norm_seg >= 0: normalised from g, stored to
+// nrm_out), h0 (rb_build_h0), the hidden layers (rb_forward), then the top
+// layer on the CUDA cores in gemm_narrow's order, a warp per row, lane i
+// summing k = i, i + 32, ..., then the xor tree; + the float32 bias.
+__device__ __forceinline__ void rb_trunk_forward(const RadIn& in, int N, const MlpDesc& d,
+                                                 const float* __restrict__ P,
+                                                 const __nv_bfloat16* __restrict__ Wb,
+                                                 const RadFwdWb& wb, float* __restrict__ rgb_out,
+                                                 float* __restrict__ nrm_out,
+                                                 unsigned char* smem_raw) {
+  RadFwdSmem& sm = *reinterpret_cast<RadFwdSmem*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int L = d.n_layers, H = L - 1;
+  const int n_out = d.nout[H], ktop = d.kin[H];
+  const int n_tiles = (N + TILE_M - 1) / TILE_M;
+  if (tid == 0) sm.ring.init(RB_CONSUMER_WARPS);
+  for (int i = tid; i < H * 256; i += RB_THREADS) {
+    const int l = i / 256, c = i % 256;
+    sm.bias[l][c] = c < d.nout[l] ? rnd<true>(P[d.boff[l] + c]) : 0.0f;
+  }
+  for (int i = tid; i < 256 * 4; i += RB_THREADS) {
+    const int kk = i / 4, j = i % 4;
+    sm.wt[i] = kk < ktop && j < n_out ? rnd<true>(P[d.woff[H] + kk * n_out + j]) : 0.0f;
+  }
+  __syncthreads();
+
+  if (warp == RB_CONSUMER_WARPS) {
+    // the producer: every hidden layer's W_l of every tile, in order
+    if (lane != 0) return;
+    uint32_t k = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+      for (int l = 0; l < H; ++l) {
+        const int nch = (round_up(d.kin[l], 16) + RB_KC - 1) / RB_KC;
+        for (int j = 0; j < nch; ++j, ++k)
+          sm.ring.produce(k, sm.w[k % RB_STAGES], Wb + wb.off[l] + (size_t)j * RB_CHUNK,
+                          RB_CHUNK * sizeof(__nv_bfloat16));
+      }
+    return;
+  }
+
+  const int g = warp >> 2, t = tid & 127;
+  RbStream st{sm.w, &sm.ring, 0};
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * TILE_M;
+    wg::bar(1, RB_CONSUMERS);  // the previous tile is done with shared memory
+    if (in.norm_seg >= 0) {
+      rad_normals(in, N, row0, sm.nr);
+      wg::bar(1, RB_CONSUMERS);
+      if (tid < TILE_M && row0 + tid < N) {
+#pragma unroll
+        for (int kk = 0; kk < 3; ++kk) nrm_out[(size_t)(row0 + tid) * 3 + kk] = sm.nr[tid * NRM + kk];
+      }
+    }
+    rb_build_h0(sm.h, in, sm.nr, N, row0);
+    wg::fence_async_smem();
+    wg::bar(1, RB_CONSUMERS);
+    const __nv_bfloat16* top =
+        rb_forward(st, sm.h, d, &sm.bias[0][0], sm.y, g, lane, t, [](int, const __nv_bfloat16*) {});
+
+    for (int r = warp; r < TILE_M; r += RB_CONSUMER_WARPS) {
+      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int kk = lane; kk < ktop; kk += 32) {
+        const float a = __bfloat162float(top[wg::core_offset(r, kk, TILE_M)]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < n_out) s[j] = fmaf(a, sm.wt[4 * kk + j], s[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
+      }
+      if (lane == 0 && row0 + r < N) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < n_out) rgb_out[(size_t)(row0 + r) * n_out + j] = s[j] + P[d.boff[H] + j];
+      }
+    }
+  }
+}
+
+// Launch kernel (a __global__ wrapper of rb_trunk_forward) on min(ctas,
+// tiles) CTAs; wb_off[l]: W_l's offset in Wb.
+template <class Kernel>
+inline int rb_trunk_forward_launch(Kernel kernel, const RadIn& in, int N, const int* desc,
+                                   const float* P, const void* Wb, const int* wb_off,
+                                   float* rgb_out, float* nrm_out, int ctas, void* stream) {
+  const MlpDesc d = desc_from(desc);
+  RadFwdWb wb;
+  for (int l = 0; l < MK_MAX_LAYERS; ++l) wb.off[l] = wb_off[l];
+  const size_t smem = sizeof(RadFwdSmem);
+  const int n_tiles = (N + TILE_M - 1) / TILE_M;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kernel<<<ctas < n_tiles ? ctas : n_tiles, RB_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      in, N, d, P, static_cast<const __nv_bfloat16*>(Wb), wb, rgb_out, nrm_out);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -140,19 +140,19 @@ def input_blocks(widths, outputs):
 
 
 _routes: dict = {}  # (widths, outputs, device) -> the route table on the device
-FWD_MAX_HIDDEN = 8  # csrc/radiance_norm.cu RF_MAX_HIDDEN
+FWD_MAX_HIDDEN = 8  # csrc/radiance_tc.cuh RF_MAX_HIDDEN
 
 
 def pack_fwd(ws):
-    """K3f's bf16 B operands (csrc/radiance_norm.cu, radiance_tc.cuh): the
+    """K3f's and K8a's bf16 B operands (csrc/radiance_tc.cuh): the
     hidden layers' W_l in ring order, ``BWD_KC`` rows a stage, as the first
     H operands of ``pack_bwd``; and each one's element offset."""
     return pack_wgmma_b(ws[:-1], BWD_KC)
 
 
 def pack_bwd(ws, widths, outputs):
-    """K3b's pass-1 B operands (csrc/radiance_bwd_tc.cuh), in ring order:
-    the forward's W_l (l < H), the backward's W_l^T (l = H - 1 .. 1), then
+    """K3b's and K8a's pass-1 B operands (csrc/radiance_bwd_tc.cuh), in ring
+    order: the forward's W_l (l < H), the backward's W_l^T (l = H - 1 .. 1), then
     W0^T restricted to each input block's rows (``input_blocks``), each
     ``BWD_KC`` rows a ring stage. Returns (the bf16 buffer, offsets, depths
     K, number of blocks, the route table (blocks, 256) int32 on the weights'
@@ -199,11 +199,17 @@ def _bwd_lib():
         _c, _c, _i, _c, _i, _c, _i, _i, _pi, _c, _c, _c, _c, _c, _c, _c, _c, _i, _i, _c, _c,
     ]
     lib.radiance_norm_bwd_tc_launch.restype = _i
-    lib.radiance_norm_bwd_tc_launch.argtypes = [
-        _c, _c, _i, _c, _i, _c, _i, _i, _pi, _c, _c, _pi, _pi, _i, _i, _c, _c, _c, _c, _c, _c,
-        ctypes.POINTER(_c), ctypes.POINTER(_c), _pi, _c, _i, _i, _c, _i, _i, _c, _c,
-    ]
+    lib.radiance_norm_bwd_tc_launch.argtypes = bwd_tc_argtypes(5)  # co, cn, dg, df, dc
     return lib
+
+
+def bwd_tc_argtypes(n_cot: int):
+    """The argument types of a tensor-core backward's C entry point (K3b's,
+    K8a's): the operands, the packed B operands, ``n_cot`` cotangent
+    pointers (inputs, then outputs), the scratch and the partials."""
+    _i, _pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    return [_c, _c, _i, _c, _i, _c, _i, _i, _pi, _c, _c, _pi, _pi, _i, _i, _c, *[_c] * n_cot,
+            ctypes.POINTER(_c), ctypes.POINTER(_c), _pi, _c, _i, _i, _c, _i, _i, _c, _c]
 
 
 def _inputs(g, sv, feat, code, dtype):
@@ -286,8 +292,9 @@ def _launch_backward(ws, bs, g, sv, feat, co, cn, dtype, code):
     dc = torch.empty(N, C, dtype=torch.float32, device=dev) if code is not None else None
     if N > 0 and dtype is not None:
         P, desc = packed(ws, bs, dev)
-        out = _launch_backward_tc(ws, P, desc, g, sv, feat, code, co, cn, dg, df, dc,
-                                  (ds, 3, F, C))
+        lib = _bwd_lib()
+        out = bwd_tc(lib, BWD_NAME, lib.radiance_norm_bwd_tc_launch, ws, P, desc,
+                     (g, sv, ds, feat, F, code, C, N), (co, cn, dg, df, dc))
         build.launches[BWD_NAME] += 1
     elif N > 0:
         P, PT, desc = packed(ws, bs, dev, transposed=True)
@@ -307,19 +314,23 @@ def _launch_backward(ws, bs, g, sv, feat, co, cn, dtype, code):
     return dws, dbs, dg, df, dc
 
 
-def _launch_backward_tc(ws, P, desc, g, sv, feat, code, co, cn, dg, df, dc, widths):
-    """The tensor-core passes (csrc/radiance_bwd_tc.cuh): pass 1 on one CTA
-    per SM over 64-row tiles, storing each tile's h0, Y_l (l < H - 1) and
-    CT_l (l < H) as 64-row blocks of wgmma's layout; pass 2 over the blocks'
-    128-column slices and splits of the tiles; the ordered sums. Returns the
-    parameter gradients in ``build.pack_mlp``'s layout."""
-    dev, N = g.device, g.shape[0]
+def bwd_tc(lib, name, launch, ws, P, desc, operands, cotangents):
+    """The tensor-core passes (csrc/radiance_bwd_tc.cuh) through ``launch``,
+    the C entry point of K3b or K8a in ``lib``: pass 1 on one CTA per SM
+    over 64-row tiles, storing each tile's h0, Y_l (l < H - 1) and CT_l (l <
+    H) as 64-row blocks of wgmma's layout; pass 2 over the blocks'
+    128-column slices and splits of the tiles; the ordered sums. operands:
+    (the normals' operand, sv, ds, feat, F, code, C, N), the input
+    segments (ds, 3, F, C wide), each but sv's with a cotangent output;
+    cotangents: the entry point's cotangent tensors in its order (None:
+    none). Returns the parameter gradients in ``build.pack_mlp``'s layout."""
+    dev, N = P.device, operands[-1]
+    widths = (operands[2], 3, operands[4], operands[6])
     H = len(ws) - 1
     n_small = sum(w.shape[1] for w in ws) + ws[-1].shape[0] * ws[-1].shape[1]
     if n_small > BWD_SMALL:
         raise ValueError(f"{n_small} bias and top-layer gradients > {BWD_SMALL}")
-    outputs = (1, 2, 3) if widths[3] > 0 else (1, 2)
-    wb, offs, ks, nblk, route = pack_bwd(ws, widths, outputs)
+    wb, offs, ks, nblk, route = pack_bwd(ws, widths, tc_outputs(widths))
     if len(offs) > BWD_MAX_MATS:
         raise ValueError(f"{len(offs)} B operands > {BWD_MAX_MATS}")
     n_tiles = -(-N // TILE_M)
@@ -341,17 +352,24 @@ def _launch_backward_tc(ws, P, desc, g, sv, feat, code, co, cn, dg, df, dc, widt
     part2 = torch.empty(blocks * splits, 128, WG_N, dtype=torch.float32, device=dev)
     n_w = sum(w.shape[0] * w.shape[1] for w in ws[:H])
     out = torch.empty(P.numel(), dtype=torch.float32, device=dev)
-    lib = _bwd_lib()
-    ds, _, F, C = widths
-    err = lib.radiance_norm_bwd_tc_launch(
-        build.ptr(g), build.ptr(sv), ds, build.ptr(feat), F, opt_ptr(code), C, N, desc,
-        build.ptr(P), build.ptr(wb), _ints(offs), _ints(ks), len(offs), nblk, build.ptr(route),
-        build.ptr(co), build.ptr(cn), build.ptr(dg), build.ptr(df), opt_ptr(dc), ct_ptrs, a_ptrs,
-        _ints(kap), build.ptr(part1), grid1, n_small, build.ptr(part2), splits,
-        max(n_small, n_w), build.ptr(out), build.stream_ptr(dev),
+
+    def arg(x):  # a tensor (or None) as its pointer, an int as itself
+        return opt_ptr(x) if x is None or isinstance(x, torch.Tensor) else x
+
+    err = launch(
+        *map(arg, operands), desc, build.ptr(P), build.ptr(wb), _ints(offs), _ints(ks), len(offs),
+        nblk, build.ptr(route), *map(arg, cotangents), ct_ptrs, a_ptrs, _ints(kap),
+        build.ptr(part1), grid1, n_small, build.ptr(part2), splits, max(n_small, n_w),
+        build.ptr(out), build.stream_ptr(dev),
     )
-    build.check(lib, BWD_NAME, err)
+    build.check(lib, name, err)
     return out
+
+
+def tc_outputs(widths):
+    """The input segments of (sv, normals, feat, code) with a cotangent
+    output in the tensor-core backward: all but sv, the code when given."""
+    return (1, 2, 3) if widths[3] > 0 else (1, 2)
 
 
 class _RadianceNorm(torch.autograd.Function):

@@ -6,8 +6,7 @@ _radiance_fwd_pallas`` (its ``pl.pallas_call`` at :379), its backward that
 file's ``_radiance_bwd_pallas`` (:538); ``radiance_split`` is the
 counterpart of the custom-VJP function there, reached from
 ``fields.rendering_apply_pallas`` in idr mode (``rgb_backend='pallas'``).
-Kernels: ``csrc/radiance_split.cu`` and ``csrc/radiance_split_bwd.cu``, on
-the trunk of ``csrc/radiance.cuh``.
+Kernels: ``csrc/radiance_split.cu`` and ``csrc/radiance_split_bwd.cu``.
 
 The layer-0 input is [points, view PE | normals | features | code] (W0's
 natural row order; the code when given), assembled in the kernel from the
@@ -22,7 +21,15 @@ code's dc (N, C) float32; the points and view PE get none (the TPU kernel
 forms none: stop-gradient data in the reference).
 
 Bound on the card: operations (about 3.0e10 FLOP forward per 100,352
-samples with a 32-wide code, the backward about three times that).
+samples with a 32-wide code, the backward about three times that). At bf16
+both run on the tensor cores with K3's kernel bodies and K8a's segments
+(sv, the normals and the code read as float32, no normalise step): the
+forward is K3f's (csrc/radiance_tc.cuh ``rb_trunk_forward``, B operands
+from ``radiance_norm.pack_fwd``), the backward K3b's two passes
+(csrc/radiance_bwd_tc.cuh, ``radiance_norm.bwd_tc``), its float32 co kept
+unrounded for the output layer's db and rounded for dW and the
+propagation. float32 runs the SIMT trunk of csrc/radiance.cuh (float32
+FMAs on the CUDA cores).
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ from .radiance_mlp import (
     packed,
     trunk_bwd_plain,
 )
+from .radiance_norm import FWD_MAX_HIDDEN, bwd_tc, bwd_tc_argtypes, pack_fwd
+from .sdf_grad import _ints
 
 NAME = "radiance_split"
 BWD_NAME = "radiance_split_bwd"
@@ -73,22 +82,25 @@ def radiance_split_bwd_plain(ws, bs, normals, sv, feat, code, co, dtype=None):
 
 def _lib():
     lib = build.load(NAME)
-    lib.radiance_split_launch.restype = ctypes.c_int
-    lib.radiance_split_launch.argtypes = [
-        _c, _c, ctypes.c_int, _c, ctypes.c_int, _c, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), _c, _c, ctypes.c_int, _c,
+    _i, _pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.radiance_split_launch.restype = _i
+    lib.radiance_split_launch.argtypes = [_c, _c, _i, _c, _i, _c, _i, _i, _pi, _c, _c, _c]
+    lib.radiance_split_tc_launch.restype = _i
+    lib.radiance_split_tc_launch.argtypes = [
+        _c, _c, _i, _c, _i, _c, _i, _i, _pi, _c, _c, _pi, _c, _i, _c,
     ]
     return lib
 
 
 def _bwd_lib():
     lib = build.load(BWD_NAME)
-    lib.radiance_split_bwd_launch.restype = ctypes.c_int
+    _i, _pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.radiance_split_bwd_launch.restype = _i
     lib.radiance_split_bwd_launch.argtypes = [
-        _c, _c, ctypes.c_int, _c, ctypes.c_int, _c, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), _c, _c, _c, _c, _c, _c, _c, ctypes.c_int, ctypes.c_int, _c,
-        ctypes.c_int, _c,
+        _c, _c, _i, _c, _i, _c, _i, _i, _pi, _c, _c, _c, _c, _c, _c, _c, _i, _i, _c, _c,
     ]
+    lib.radiance_split_bwd_tc_launch.restype = _i
+    lib.radiance_split_bwd_tc_launch.argtypes = bwd_tc_argtypes(4)  # co, dn, df, dc
     return lib
 
 
@@ -129,10 +141,20 @@ def _launch_forward(ws, bs, normals, sv, feat, code, dtype):
     if N == 0:
         return out
     lib = _lib()
-    err = lib.radiance_split_launch(
-        build.ptr(normals), build.ptr(sv), ds, build.ptr(feat), F, opt_ptr(code), C, N, desc,
-        build.ptr(P), build.ptr(out), int(dtype is not None), build.stream_ptr(dev),
-    )
+    if dtype is not None:  # the tensor cores
+        if len(ws) - 1 > FWD_MAX_HIDDEN:
+            raise ValueError(f"{len(ws) - 1} hidden layers > {FWD_MAX_HIDDEN}")
+        wb, offs = pack_fwd(ws)
+        err = lib.radiance_split_tc_launch(
+            build.ptr(normals), build.ptr(sv), ds, build.ptr(feat), F, opt_ptr(code), C, N, desc,
+            build.ptr(P), build.ptr(wb), _ints(offs), build.ptr(out), build.num_sms(dev),
+            build.stream_ptr(dev),
+        )
+    else:
+        err = lib.radiance_split_launch(
+            build.ptr(normals), build.ptr(sv), ds, build.ptr(feat), F, opt_ptr(code), C, N, desc,
+            build.ptr(P), build.ptr(out), build.stream_ptr(dev),
+        )
     build.check(lib, NAME, err)
     build.launches[NAME] += 1
     return out
@@ -141,8 +163,8 @@ def _launch_forward(ws, bs, normals, sv, feat, code, dtype):
 def radiance_split_bwd(ws, bs, normals, sv, feat, code, co, dtype=None):
     """K8a's backward: (dws, dbs, dn (N, 3) float32, df (N, F) at the
     operand dtype, dc (N, C) float32 or None). A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel, which keeps at most two
-    hidden layers (the bench's 2x256)."""
+    version; a CUDA tensor launches the kernel (bf16: the tensor-core
+    passes), which keeps at most two hidden layers (the bench's 2x256)."""
     if normals.device.type == "cpu":
         return radiance_split_bwd_plain(ws, bs, normals, sv, feat, code, co, dtype)
     return _launch_backward(ws, bs, normals, sv, feat, code, co, dtype)
@@ -154,23 +176,28 @@ def _launch_backward(ws, bs, normals, sv, feat, code, co, dtype):
     check_trunk(ws, ds + 3 + F + C, backward=True)
     co = co.float().contiguous()
     build.require(co, "co", torch.float32, (N, ws[-1].shape[1]), dev)
-    P, PT, desc = packed(ws, bs, dev, transposed=True)
-    out, work, grid = bwd_outputs(P, N, dev)
     dn = torch.empty(N, 3, dtype=torch.float32, device=dev)
     df = torch.empty(N, F, dtype=dtype or torch.float32, device=dev)
     dc = torch.empty(N, C, dtype=torch.float32, device=dev) if code is not None else None
-    if N > 0:
+    if N > 0 and dtype is not None:
+        P, desc = packed(ws, bs, dev)
+        lib = _bwd_lib()
+        out = bwd_tc(lib, BWD_NAME, lib.radiance_split_bwd_tc_launch, ws, P, desc,
+                     (normals, sv, ds, feat, F, code, C, N), (co, dn, df, dc))
+        build.launches[BWD_NAME] += 1
+    elif N > 0:
+        P, PT, desc = packed(ws, bs, dev, transposed=True)
+        out, work, grid = bwd_outputs(P, N, dev)
         lib = _bwd_lib()
         err = lib.radiance_split_bwd_launch(
             build.ptr(normals), build.ptr(sv), ds, build.ptr(feat), F, opt_ptr(code), C, N,
             desc, build.ptr(P), build.ptr(PT), build.ptr(co), build.ptr(dn), build.ptr(df),
-            opt_ptr(dc), build.ptr(work), grid, P.numel(), build.ptr(out),
-            int(dtype is not None), build.stream_ptr(dev),
+            opt_ptr(dc), build.ptr(work), grid, P.numel(), build.ptr(out), build.stream_ptr(dev),
         )
         build.check(lib, BWD_NAME, err)
         build.launches[BWD_NAME] += 1
     else:
-        out.zero_()
+        out = torch.zeros(sum(t.numel() for t in (*ws, *bs)), dtype=torch.float32, device=dev)
     dws, dbs = build.unpack_mlp(out, ws, bs)
     return dws, dbs, dn, df, dc
 

@@ -392,6 +392,111 @@ def test_k3f_tensor_cores_match_plain(dev, code_dim, n):
     assert build.launches["radiance_norm"] - before["radiance_norm"] == 2
 
 
+# K8a's bf16 kernels on the tensor cores (the forward K3f's body, the
+# backward K3b's two passes, with K8a's segments: float32 sv, raw gradient
+# and code, a float32 co, no normalise step): 700 rows (11 tiles, the last
+# ragged: 60 rows) and 16,901 (265 tiles, more than the card has SMs; the
+# last 5 rows), with and without the per-image code
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [700, 16901])
+@pytest.mark.parametrize("code_dim", [0, 8])
+def test_k8a_tensor_cores_match_plain(dev, code_dim, n):
+    """K8a forward and backward against their plain versions at the bf16
+    bars (the output and df at TOL; dW, db, dn and dc at GRAD_TOL), the
+    rows whose ReLU gates lie within float32 rounding of 0 with a zero
+    cotangent; two runs give the same bits; one launch of each kernel a
+    call."""
+    from monosdf_torch.kernels import radiance_split as k8a
+
+    ws, bs, g, sv, feat, code, co, _ = _radiance_case(dev, code_dim=code_dim or 8, n=n)
+    if code_dim == 0:  # the trunk without the code's W0 rows
+        ws = [ws[0][:-8].contiguous(), *ws[1:]]
+        code = None
+    bf = torch.bfloat16
+    before = dict(build.launches)
+    with torch.no_grad():
+        co = _clear_gated_rows(co, torch.cat([sv, g, feat, *([code] if code_dim else [])], -1),
+                               ws, bs)
+        out = [k8a.radiance_split(ws, bs, g, sv, feat, code, bf) for _ in range(2)]
+        bwd = [k8a.radiance_split_bwd(ws, bs, g, sv, feat, code, co, bf) for _ in range(2)]
+        ref = k8a.radiance_split_plain(ws, bs, g, sv, feat, code, bf)
+        p = k8a.radiance_split_bwd_plain(ws, bs, g, sv, feat, code, co, bf)
+    torch.cuda.synchronize()
+    _check([out[0]], [ref], bf)
+    dws, dbs, dn, df, dc = bwd[0]
+    assert dn.dtype == torch.float32 and df.dtype == bf and (dc is None) == (code is None)
+    _check_grads([*dws, *dbs, dn, *([dc] if code_dim else [])],
+                 [*p[0], *p[1], p[2], *([p[4]] if code_dim else [])], bf)
+    _check([df], [p[3]], bf)
+    assert torch.equal(out[0], out[1])
+    flat = [[*b[0], *b[1], *b[2:]] for b in bwd]
+    assert all(a is None or torch.equal(a, b) for a, b in zip(*flat))
+    assert {k: build.launches[k] - before[k] for k in ("radiance_split", "radiance_split_bwd")} == {
+        "radiance_split": 2, "radiance_split_bwd": 2}
+
+
+def _ordered_column_sums(co, ctas):
+    """co's column sums (float32) in the tensor-core backward's order: each
+    64-row tile's rows in order (zeros past N), a persistent CTA's tiles
+    (ctas apart) in order, then the CTAs in order."""
+    n, k = co.shape
+    tiles = -(-n // 64)
+    rows = np.zeros((tiles * 64, k), np.float32)
+    rows[:n] = co.float().cpu().numpy()
+    rows = rows.reshape(tiles, 64, k)
+    per_tile = np.zeros((tiles, k), np.float32)
+    for r in range(64):
+        per_tile += rows[:, r]
+    part = np.zeros((ctas, k), np.float32)
+    for t0 in range(0, tiles, ctas):
+        chunk = per_tile[t0:t0 + ctas]
+        part[:len(chunk)] += chunk
+    total = np.zeros(k, np.float32)
+    for b in range(ctas):
+        total += part[b]
+    return torch.from_numpy(total)
+
+
+# the output layer's db of the tensor-core backward, whose top cotangent
+# may be float32 (K8a) or bf16 (K3b), at 16,901 rows (265 tiles over the
+# persistent CTAs)
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["k3b", "k8a"])
+def test_tensor_core_backward_output_bias_gradient_is_the_ordered_sum_of_co(dev, which):
+    """db of the output layer, bit for bit, is the top cotangent summed in
+    the kernels' fixed order: K3b's co rounded to bf16 (its rounded and
+    unrounded copies coincide), K8a's float32 co unrounded (the TPU kernel
+    sums it before its cast); every output within its bar (the rows with
+    an ambiguous ReLU gate cleared) and the same bits on two runs."""
+    from monosdf_torch.kernels import radiance_split as k8a
+
+    from monosdf_torch.kernels.radiance_norm import normalize
+
+    n, bf = 16901, torch.bfloat16
+    ws, bs, g, sv, feat, code, co, cn = _radiance_case(dev, n=n)
+    with torch.no_grad():
+        h0 = torch.cat([sv, normalize(g) if which == "k3b" else g, feat, code], -1)
+        co = _clear_gated_rows(co * 3.0 + 0.01, h0, ws, bs)  # most values off the bf16 grid
+        if which == "k3b":
+            runs = [radiance_norm_bwd(ws, bs, g, sv, feat, co, cn, bf, code) for _ in range(2)]
+            p = radiance_norm_bwd_plain(ws, bs, g, sv, feat, co, cn, bf, code)
+            summed = co.to(bf)
+        else:
+            runs = [k8a.radiance_split_bwd(ws, bs, g, sv, feat, code, co, bf) for _ in range(2)]
+            p = k8a.radiance_split_bwd_plain(ws, bs, g, sv, feat, code, co, bf)
+            summed = co
+    torch.cuda.synchronize()
+    ctas = min(torch.cuda.get_device_properties(dev).multi_processor_count, -(-n // 64))
+    db_top = runs[0][1][-1]
+    assert torch.equal(db_top.cpu(), _ordered_column_sums(summed, ctas))
+    assert not torch.equal(_ordered_column_sums(co.to(bf), ctas), _ordered_column_sums(co, ctas))
+    flat = [[*r[0], *r[1], *r[2:]] for r in runs]
+    assert all(torch.equal(a, b) for a, b in zip(*flat))
+    dws, dbs, d_in, df, dc = runs[0]
+    _check_grads([*dws, *dbs, d_in, dc], [*p[0], *p[1], p[2], p[4]], bf)
+    _check([df], [p[3]], bf)
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     imp, ren = _nets(dev)

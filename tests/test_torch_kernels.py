@@ -328,6 +328,85 @@ def _check_k3b_packing(d0):
     assert not _mirror_read(wb, offs[4], 256, k1.WG_N, BWD_KC)[:, 3 + C:].any()
 
 
+@pytest.mark.parametrize("d0", [289, 321], ids=["no-code", "code"])
+@pytest.mark.parametrize("way", ["fwd", "bwd"])
+def test_k8a_tensor_core_packers_read_back(way, d0):
+    """K8a's bf16 B operands, read back through the mirror of the kernels'
+    shared-memory addressing, for the bench's 289-wide radiance input and
+    the appearance-code model's 321-wide one, at K8a's segments (sv, the
+    raw gradient, the features, the code) and the outputs its tensor-core
+    backward gives (``radiance_norm.tc_outputs``): the forward's W_0 and
+    W_1 (``pack_fwd``, the first operands of ``pack_bwd``); the backward's
+    input blocks, whose route tables name every column of dn, df and dc
+    exactly once and no column of sv (the points and view PE get no
+    cotangent)."""
+    from monosdf_torch.cli.eval import bench_mlp_config, union_codes_config
+    from monosdf_torch.kernels.radiance_norm import BWD_KC, pack_bwd, pack_fwd, tc_outputs
+
+    cfg = (union_codes_config() if d0 == 321 else bench_mlp_config()).rendering
+    F, C = cfg.feature_vector_size, cfg.code_dim if cfg.per_image_code else 0
+    widths = (d0 - 3 - F - C, 3, F, C)
+    assert widths[0] == 30 and cfg.dims == (256, 256)  # [points, view PE(4)]; 2x256
+    ws = [torch.from_numpy(_f32(k, n, seed=k)) for k, n in ((d0, 256), (256, 256), (256, 3))]
+    outputs = tc_outputs(widths)
+    assert outputs == ((1, 2, 3) if C else (1, 2))
+    wb, offs, ks, nblk, route = pack_bwd(ws, widths, outputs)
+    if way == "fwd":
+        wf, offs_f = pack_fwd(ws)
+        assert len(offs_f) == 2 and offs[:2] == offs_f and torch.equal(wf, wb[:wf.numel()])
+        for l, w in enumerate(ws[:-1]):
+            assert torch.equal(_mirror_read(wf, offs_f[l], *w.shape, BWD_KC), w.bfloat16().float())
+        return
+    starts = [0, widths[0], widths[0] + 3, widths[0] + 3 + F]
+    seen = []
+    assert route.dtype == torch.int32 and route.shape == (nblk, k1.WG_N) and nblk == 2
+    for b in range(nblk):
+        codes = [int(v) for v in route[b] if v >= 0]
+        assert all(v < 0 for v in route[b, len(codes):])
+        seen += codes
+        rows = ws[0][[starts[v >> 16] + (v & 0xFFFF) for v in codes]].t()
+        m = len(offs) - nblk + b  # after W_0, W_1 and W_1^T
+        assert ks[m] == rows.shape[0]
+        assert torch.equal(_mirror_read(wb, offs[m], *rows.shape, BWD_KC),
+                           rows.bfloat16().float()), b
+    assert not any(v >> 16 == 0 for v in seen)
+    assert len(seen) == len(set(seen)) == 3 + F + C
+    assert set(seen) == {(s << 16) | c for s in outputs for c in range(widths[s])}
+
+
+@pytest.mark.parametrize("code_dim", [0, 8], ids=["no-code", "code"])
+def test_k8a_wrapper_takes_plain_on_cpu_in_bf16(code_dim):
+    """On a CPU tensor K8a's wrappers take the plain versions in bf16, as in
+    float32: the forward, the backward and the autograd Function's gradients
+    equal them, and nothing is launched."""
+    from monosdf_torch.kernels import radiance_split as k8a
+
+    cfg = tf.RenderingNetConfig(feature_vector_size=32, dims=(48, 48), multires_view=4,
+                                per_image_code=code_dim > 0, code_dim=code_dim or 32)
+    ren = tf.init_rendering_net(cfg, torch.Generator().manual_seed(0))
+    ws, bs = ([t.detach() for t in ts] for ts in tf.effective_linear_weights(ren))
+    n = 37
+    t = lambda *shape, seed: torch.from_numpy(_f32(*shape, seed=seed))  # noqa: E731
+    normals, feat, co = t(n, 3, seed=1), t(n, 32, seed=2).bfloat16(), t(n, 3, seed=3)
+    sv = torch.cat([t(n, 3, seed=4), positional_encoding(t(n, 3, seed=5), 4)], -1)
+    code = t(n, code_dim, seed=6) if code_dim else None
+    bf = torch.bfloat16
+    before = dict(build.launches)
+    out = k8a.radiance_split(ws, bs, normals, sv, feat, code, bf)
+    assert torch.equal(out, k8a.radiance_split_plain(ws, bs, normals, sv, feat, code, bf))
+    bwd = k8a.radiance_split_bwd(ws, bs, normals, sv, feat, code, co, bf)
+    ref = k8a.radiance_split_bwd_plain(ws, bs, normals, sv, feat, code, co, bf)
+    for a, b in zip([*bwd[0], *bwd[1], *bwd[2:]], [*ref[0], *ref[1], *ref[2:]]):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert bwd[3].dtype == bf and bwd[2].dtype == torch.float32
+    for x in (normals, feat, *ws):
+        x.requires_grad_()
+    (k8a.radiance_split(ws, bs, normals, sv, feat, code, bf) * co).sum().backward()
+    assert torch.equal(normals.grad, ref[2]) and torch.equal(feat.grad, ref[3].to(bf))
+    assert all(torch.equal(w.grad, d) for w, d in zip(ws, ref[0]))
+    assert build.launches == before
+
+
 def test_k1_plain_matches_jnp_path(models):
     jcfg, _, jparams, _ = models
     x = _points(seed=1)
