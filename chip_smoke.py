@@ -24,17 +24,22 @@ through K3 and through K8a. Phases (any failure exits non-zero):
    K2b at the training step's 104,448 points, K3b at its 100,352 samples;
    K2f's bf16 render chunk kernel against its order reference, the SIMT
    kernel, bit for bit on the MLP and union models' trunks (and the
-   reference's time);
+   reference's time); K4's speculative kernel against its order reference,
+   the same kernel at depth 1, bit for bit, with K4's device time per
+   launch (torch.profiler) and host time per call;
    for the grid model K6 at the sweeps' 131,072 points (6 levels) and at
    the step's 104,448 points (16 levels, with tangents), K5, K7f and K7b at
-   104,448 points, K1 at the grid trunk's 71-wide input; the radiance
+   104,448 points, K1 at the grid trunk's 71-wide input; K6 and K5 again
+   at ray-ordered points (1024 rays through the box, as the model gives
+   them: K6 held to its plain version there, wall, device and host times,
+   bounds from those points' table sectors); the radiance
    kernels at the step's 100,352 samples: K3f/K3b with the union model's
    32-wide code, K8a forward and backward on its raw gradient, K8b forward
    and backward on the nerf trunk's 283-wide input;
 4. render 4 synthetic 64x64 views through cli/eval.py at full width
    (geometric init plus seeded noise) with the kernels, counting launches
-   (K1 = K4 = 5 and K2 = K3 = 1 per chunk, K2f's order reference 0 on
-   every main path); render every chunk again with
+   (K1 = K4 = 5 and K2 = K3 = 1 per chunk, K2f's and K4's order
+   references 0 on every main path); render every chunk again with
    each kernel's plain version in its wrapper's place, once through the
    sampler and once at the kernel render's own samples (render_samples),
    and compare; time one chunk both ways; phases 4 and 5 again with
@@ -96,6 +101,10 @@ import torch
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16 (NVIDIA data sheet, SXM, 700 W)
 H100_F32_FLOPS = 67e12    # float32 outside the tensor cores
 H100_BYTES = 3.35e12      # HBM3 bytes/s
+# SFU results (ex2, rcp: MUFU) per second: 16 per SM per clock (CUDA C
+# programming guide, compute capability 9.0) x 132 SMs x the 1.98 GHz boost
+# clock the data sheet's float32 peak assumes
+H100_SFU_OPS = 16 * 132 * 1.98e9
 SEED = 0
 CHUNK = 1024
 
@@ -128,9 +137,10 @@ PROBE_SITES = {
 TPU_KERNELS.update({name: sites[0] for name, sites in PROBE_SITES.items()})
 # K1-PE: K1's library on raw points (kernel_pe, inside the pl.pallas_call at :310)
 TPU_KERNELS["sdf_mlp_pe"] = "monosdf_tpu/ops/pallas_mlp.py:140"
-# and the launches of K2f's SIMT kernel as the render chunk's order
-# reference (build.reference_launches), which no main path makes
-_NONE = dict.fromkeys([*TPU_KERNELS, "sdf_grad_simt"], 0)
+# and the launches of the order references (build.reference_launches: K2f's
+# SIMT kernel for the render chunk's kernel, K4 at depth 1 for the
+# speculative bisection), which no main path makes
+_NONE = dict.fromkeys([*TPU_KERNELS, "sdf_grad_simt", "sampler_machinery_seq"], 0)
 PER_CHUNK = {**_NONE, "sdf_mlp": 5, "sampler_machinery": 5, "sdf_grad": 1, "radiance_norm": 1}
 PER_STEP = {**PER_CHUNK, "sdf_grad_bwd": 1, "radiance_norm_bwd": 1}
 # the grid model: 4 sampler sweeps (K1 on [PE | K6 features of 6 levels])
@@ -241,6 +251,85 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str, reps: int = 10) -> float:
+    """Device ms per call of fn spent in ``kernel`` (a name of
+    build.SOURCES), from _profile; fails where it recorded none."""
+    ms = _profile(fn, reps, kernel)["kernels_ms"].get(kernel, 0.0)
+    if ms <= 0:
+        fail(f"torch.profiler recorded no device time for {kernel}")
+    return ms
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host us per call of fn with the stream kept busy (a sleep kernel
+    queued first), so that each call's launch is only enqueued."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of device clock cycles
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def k4_inputs(rng, dev, n_iters: int, n_eval: int, rays: int = CHUNK, beta0: float = 0.01) -> list:
+    """K4's synthetic inputs, one per sampler iteration it (N = n_eval (it
+    + 1) sorted samples in [0, 3.85] a ray, an SDF crossing zero once, with
+    noise): (sdf, dists_tail, d_star, beta_prev, beta0, last)."""
+    from monosdf_torch.ops.sampler import _d_star
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    out = []
+    for it in range(n_iters):
+        N = n_eval * (it + 1)
+        z = np.sort(rng.uniform(0.0, 3.85, (rays, N)), axis=-1)
+        sdf = np.tanh(rng.uniform(0.8, 2.5, (rays, 1)) - z) * 0.6
+        sdf = sdf + 0.01 * rng.normal(size=sdf.shape)
+        dists = np.diff(z, axis=-1)
+        zt, st = t(z), t(sdf)
+        dt = t(np.concatenate([dists, np.full((rays, 1), 1e10)], -1))
+        ds = torch.nn.functional.pad(_d_star(zt, st), (0, 1)).contiguous()
+        bp = t(np.sqrt(np.sum(dists**2, -1) / (4 * math.log(1.1)))[:, None])
+        out.append((st, dt, ds, bp, torch.tensor(beta0, device=dev), it == n_iters - 1))
+    return out
+
+
+def grid_step_points(cfg, dev):
+    """The points K6 (and K5) take in one training step of the grid model
+    ``cfg`` on the synthetic scene's first batch, where the model's sampler
+    places them: (the sweeps' (points, levels read), one pair each; the
+    differentiated encode's points, the samples and the eikonal batch)."""
+    from monosdf_torch.cli.train import make_trainer, ray_batches
+    from monosdf_torch.data.synthetic import make_synthetic_sphere_scene
+    from monosdf_torch.kernels import hash_encode as k6
+    from monosdf_torch.models import fields
+    from monosdf_torch.models.monosdf import init_monosdf
+
+    scene = make_synthetic_sphere_scene(n_images=4, img_res=64)
+    batch = ray_batches(scene, np.random.default_rng(SEED), 1, CHUNK, dev)[0]
+    model = init_monosdf(cfg, seed=SEED, device=dev)
+    step = make_trainer(model, cfg)
+    sweeps, diff = [], []
+    encode = k6.hash_encode_fwd
+
+    def record(table, g, x, size=1.0, n_levels=None, tangents=False, tangent_scale=1.0):
+        (diff if tangents else sweeps).append((x.detach().clone(), n_levels))
+        return encode(table, g, x, size, n_levels, tangents, tangent_scale)
+
+    # the sweeps call fields' name of the wrapper, encode_diff the module's
+    k6.hash_encode_fwd = fields.hash_encode_fwd = record
+    try:
+        step(model, batch, generator=torch.Generator(device=dev).manual_seed(SEED))
+    finally:
+        k6.hash_encode_fwd = fields.hash_encode_fwd = encode
+    torch.cuda.synchronize()
+    if len(diff) != 1 or not sweeps:
+        fail(f"the grid step encoded {len(sweeps)} sweeps and {len(diff)} differentiated sets")
+    return sweeps, diff[0][0]
 
 
 def max_err(a, b):
@@ -364,7 +453,6 @@ def kernel_checks(model, cfg, dev):
     from monosdf_torch.kernels import sdf_mlp as k1
     from monosdf_torch.models.fields import effective_linear_weights
     from monosdf_torch.ops.embedder import positional_encoding
-    from monosdf_torch.ops.sampler import _d_star
 
     rng = np.random.default_rng(SEED)
     imp = cfg.implicit
@@ -384,19 +472,7 @@ def kernel_checks(model, cfg, dev):
         g = t(rng.normal(size=(n_main, 3)))
         sv = torch.cat([x_main, positional_encoding(t(rng.normal(size=(n_main, 3))), 4)], -1)
         feat = t(rng.normal(size=(n_main, imp.feature_vector_size)))
-        k4_inputs = []
-        for it in range(cfg.sampler.max_total_iters):
-            N = cfg.sampler.N_samples_eval * (it + 1)
-            z = np.sort(rng.uniform(0.0, 3.85, (CHUNK, N)), axis=-1)
-            sdf = np.tanh(rng.uniform(0.8, 2.5, (CHUNK, 1)) - z) * 0.6
-            sdf = sdf + 0.01 * rng.normal(size=sdf.shape)
-            dists = np.diff(z, axis=-1)
-            zt, st = t(z), t(sdf)
-            dt = t(np.concatenate([dists, np.full((CHUNK, 1), 1e10)], -1))
-            ds = torch.nn.functional.pad(_d_star(zt, st), (0, 1)).contiguous()
-            bp = t(np.sqrt(np.sum(dists**2, -1) / (4 * math.log(1.1)))[:, None])
-            k4_inputs.append((st, dt, ds, bp, torch.tensor(0.01, device=dev),
-                              it == cfg.sampler.max_total_iters - 1))
+        k4_in = k4_inputs(rng, dev, cfg.sampler.max_total_iters, cfg.sampler.N_samples_eval)
 
         # K1 and K1-PE as the sweeps call them: the weights packed once
         pk = k1.pack(ws_sweep, bs_sweep, imp.skip_in)
@@ -423,9 +499,9 @@ def kernel_checks(model, cfg, dev):
                 lambda d: list(k3.radiance_norm_plain(rws, rbs, g, sv, feat, d)),
             ),
             "sampler_machinery": (
-                lambda d: [o for a in k4_inputs for o in k4.sampler_iter_machinery(
+                lambda d: [o for a in k4_in for o in k4.sampler_iter_machinery(
                     *a[:5], 0.1, 1e-6, a[5], 10, d)],
-                lambda d: [o for a in k4_inputs for o in k4.sampler_iter_machinery_plain(
+                lambda d: [o for a in k4_in for o in k4.sampler_iter_machinery_plain(
                     *a[:5], 0.1, 1e-6, a[5], 10, d)],
             ),
         }
@@ -443,7 +519,7 @@ def kernel_checks(model, cfg, dev):
                     if name == "sampler_machinery" and i % 2 == 0:
                         # beta: a bisection step that flips moves beta by one
                         # halving of [beta0, beta_prev]
-                        ratio = err / (float(k4_inputs[i // 2][3].max()) / 2**10)
+                        ratio = err / (float(k4_in[i // 2][3].max()) / 2**10)
                     elif name == "sampler_machinery":
                         pa, pr = K4_PDF_TOL[dname]
                         d_ab = (a.float() - b.float()).abs()
@@ -465,7 +541,7 @@ def kernel_checks(model, cfg, dev):
         for name, (kern, plain) in cases.items():
             k = cuda_ms(lambda: kern(bf))
             p = cuda_ms(lambda: plain(bf), reps=3, warmup=1)
-            n = len(k4_inputs) if name == "sampler_machinery" else 1
+            n = len(k4_in) if name == "sampler_machinery" else 1
             results[name].update(ms=k / n, plain_ms=p / n)
 
         # K2f's render chunk kernel against its order reference, the SIMT
@@ -496,6 +572,36 @@ def kernel_checks(model, cfg, dev):
             bit_equal_simt_reference=same_all,
             ms_simt_reference=cuda_ms(lambda: k2.sdf_mlp_with_grad_simt(*args), reps=5))
 
+        # K4's speculative kernel against its order reference, the same
+        # kernel at depth 1 (the sequential bisection, div.rn throughout):
+        # bit for bit on the phase's 5 shapes, float32 and bf16; the
+        # reference's time; device time per launch (torch.profiler) and the
+        # wrapper's host time per call
+        same_k4 = True
+        for dname, d in (("float32", None), ("bfloat16", bf)):
+            out_k = [o for a in k4_in for o in k4.sampler_iter_machinery(
+                *a[:5], 0.1, 1e-6, a[5], 10, d)]
+            out_r = [o for a in k4_in for o in k4.sampler_iter_machinery_seq(
+                *a[:5], 0.1, 1e-6, a[5], 10, d)]
+            torch.cuda.synchronize()
+            same = all(bits_equal(a, b) for a, b in zip(out_k, out_r))
+            print(f"check sampler_machinery vs its sequential order reference, {dname}: "
+                  f"{'bit-equal' if same else 'DIFFERENT'} {'ok' if same else 'FAIL'}", flush=True)
+            same_k4 = same_k4 and same
+        ok = ok and same_k4
+        k4_beta = out_k[0::2]  # bf16's, for the bound
+        seq = lambda: [k4.sampler_iter_machinery_seq(*a[:5], 0.1, 1e-6, a[5], 10, bf)
+                       for a in k4_in]
+        n4 = len(k4_in)
+        results["sampler_machinery"].update(
+            bit_equal_seq_reference=same_k4, ms_seq_reference=cuda_ms(seq) / n4,
+            device_ms=device_ms(lambda: cases["sampler_machinery"][0](bf),
+                                "sampler_machinery") / n4,
+            device_ms_per_shape=[device_ms(lambda a=a: k4.sampler_iter_machinery(
+                *a[:5], 0.1, 1e-6, a[5], 10, bf), "sampler_machinery") for a in k4_in],
+            host_us=host_us(lambda: k4.sampler_iter_machinery(*k4_in[0][:5], 0.1, 1e-6,
+                                                              k4_in[0][5], 10, bf)))
+
     # bounds: the least time for this work on an H100 SXM (700 W)
     sweep_flops = mlp_flops(ws_sweep, n_sweep)
     sweep_bytes = nbytes(emb) / 2 + n_sweep * 4 + nbytes(*ws_sweep, *bs_sweep)
@@ -503,11 +609,22 @@ def kernel_checks(model, cfg, dev):
     k2_bytes = n_main * (3 * 4 + 4 + imp.feature_vector_size * 2 + 3 * 4) + nbytes(*ws, *bs)
     k3_flops = mlp_flops(rws, n_main)
     k3_bytes = n_main * (3 * 4 + sv.shape[1] * 2 + feat.shape[1] * 2 + 3 * 4 + 3 * 4) + nbytes(*rws, *rbs)
-    k4_b, k4_f = 0.0, 0.0
-    for st, dt, ds, bp, _, _ in k4_inputs:
+    # K4: the error bounds this run's rays need, the sequential loop's: the
+    # bound at beta0 and, where it is above eps, 10 bisection steps (a ray
+    # whose beta comes back as beta0 needs the first only); then the
+    # density, transmittance and pdf. Per sample and error bound ~20 FLOP
+    # and 4 exp, each one ex2 on the SFU; per ray and error bound 2
+    # reciprocals (beta, 4 beta^2), the divisions then FMAs; the last step 4
+    # exp a sample (3 with `last`) and 2 reciprocals a ray
+    k4_b, k4_f, k4_sfu, k4_early = 0.0, 0.0, 0.0, 0
+    for (st, dt, ds, bp, b0, last), beta in zip(k4_in, k4_beta):
         R, N = st.shape
+        early = int((beta.flatten() == b0).sum())
+        n_bounds = early + 11 * (R - early)
+        k4_early += early
         k4_b += 4.0 * (4 * R * N + 2 * R)
-        k4_f += R * N * (11 * 20 + 12)  # ~20 FLOP per sample per error bound
+        k4_f += N * (20 * n_bounds + 12 * R)
+        k4_sfu += (4 * N + 2) * n_bounds + R * ((3 if last else 4) * N + 2)
     bounds = {
         "sdf_mlp": bound_ms(sweep_flops, sweep_bytes, H100_BF16_FLOPS),
         # K1-PE reads the points (float32) instead of the embedding
@@ -515,8 +632,15 @@ def kernel_checks(model, cfg, dev):
                                H100_BF16_FLOPS),
         "sdf_grad": bound_ms(k2_flops, k2_bytes, H100_BF16_FLOPS),
         "radiance_norm": bound_ms(k3_flops, k3_bytes, H100_BF16_FLOPS),
-        "sampler_machinery": bound_ms(k4_f / 5, k4_b / 5, H100_F32_FLOPS),
+        "sampler_machinery": bound_ms(k4_f / len(k4_in), k4_b / len(k4_in), H100_F32_FLOPS),
     }
+    # K4 at the SFU rate: operations too, and the larger term
+    sfu_ms = k4_sfu / len(k4_in) / H100_SFU_OPS * 1e3
+    if sfu_ms > bounds["sampler_machinery"][0]:
+        bounds["sampler_machinery"] = (sfu_ms, "operations")
+    results["sampler_machinery"].update(
+        bound_sfu_ms=sfu_ms, bound_unit="sfu" if sfu_ms >= bounds["sampler_machinery"][0] else None,
+        rays_beta0=k4_early / sum(a[0].shape[0] for a in k4_in))
     for name, (b, by) in bounds.items():
         results[name].update(bound_ms=b, bound_by=by)
     # the render chunk's kernel runs on the CUDA cores: its floor at their
@@ -691,7 +815,8 @@ def grid_kernel_checks(dev, results):
     the step's shapes, K5, K7f and K7b at the step's 104,448 points, K1 at
     the grid trunk's 71-wide input, each against its plain version in
     float32 and bf16 (tables read at that dtype); times, bounds and, for
-    K5, the time of one index_add_ of its per-corner terms."""
+    K5, the time of one index_add_ of its per-corner terms; K6 and K5 also
+    at the points of one grid training step (the ``*_rays`` fields)."""
     from monosdf_torch.cli.eval import bench_grids_config
     from monosdf_torch.kernels import hash_encode as k6
     from monosdf_torch.kernels import sdf_grad_grid as k7
@@ -710,6 +835,7 @@ def grid_kernel_checks(dev, results):
     N = CHUNK * cfg.sampler.total_samples + 4 * CHUNK
     L2 = imp.grid.output_dim
     model = perturbed_model(cfg, dev)
+    sweeps_o, xo = grid_step_points(cfg, dev)
     ok = True
     errs = {n: {} for n in ("hash_encode_sweep", "hash_encode", "hash_encode_bwd", "sdf_grad_grid",
                             "sdf_grad_grid_bwd", "sdf_mlp_grid")}
@@ -798,6 +924,43 @@ def grid_kernel_checks(dev, results):
         lib_ms = cuda_ms(lambda: dlib.index_add_(0, rows, u), reps=5)
         sec = _table_sectors(g, xs, g.num_levels, 4)
         sec_sw = _table_sectors(g, xs_sw, K, 4)
+
+        # K6 and K5 at the points the model gives them, those of one grid
+        # training step (grid_step_points): its sweeps' and its
+        # differentiated encode's (the samples and the eikonal batch); K6
+        # held to its plain version there too; wall, device (torch.profiler)
+        # and host times per call, the sweeps' averaged over the step's
+        No = xo.shape[0]
+        cfo, cto = t(rng.normal(size=(No, L2))), t(rng.normal(size=(3, No, L2)))
+        step_o = lambda: k6.hash_encode_fwd(tab, g, xo, 1.0, None, True, 1.0 / df)
+        sweep_o = [lambda x_=x_, k_=k_: k6.hash_encode_fwd(tab, g, x_, 1.0, k_)
+                   for x_, k_ in sweeps_o]
+        bwd_o = lambda: k6.hash_encode_bwd(g, xo, cfo, cto, 1.0, 1.0 / df)
+        pairs = [(f(), k6.hash_encode_fwd_plain(tab, g, x_, 1.0, k_))
+                 for f, (x_, k_) in zip(sweep_o, sweeps_o)]
+        pairs += zip(step_o(), k6.hash_encode_fwd_plain(tab, g, xo, 1.0, None, True, 1.0 / df))
+        r_o, e_o = _ratio(pairs, *ENCODE_TOL)
+        del pairs
+        print(f"check hash_encode       bfloat16 max_abs_err {e_o:.3e}; worst err / tolerance "
+              f"{r_o:.3e} (the grid step's points, {len(sweeps_o)} sweeps and the step) "
+              f"{'ok' if r_o <= 1.0 else 'FAIL'}", flush=True)
+        ok = ok and r_o <= 1.0
+        mean = lambda v: sum(v) / len(v)
+        rays = ("hash_encode", "hash_encode_sweep", "hash_encode_bwd")
+        ms_rays = {"hash_encode": cuda_ms(step_o, reps=5),
+                   "hash_encode_sweep": mean([cuda_ms(f, reps=5) for f in sweep_o]),
+                   "hash_encode_bwd": cuda_ms(bwd_o, reps=5)}
+        dev_ms = {"hash_encode": (device_ms(timed["hash_encode"][0], "hash_encode"),
+                                  device_ms(step_o, "hash_encode")),
+                  "hash_encode_sweep": (device_ms(timed["hash_encode_sweep"][0], "hash_encode"),
+                                        mean([device_ms(f, "hash_encode") for f in sweep_o])),
+                  "hash_encode_bwd": (device_ms(timed["hash_encode_bwd"][0], "hash_encode_bwd"),
+                                      device_ms(bwd_o, "hash_encode_bwd"))}
+        host = {n: host_us(timed[n][0]) for n in rays}
+        sec_o = _table_sectors(g, xo, g.num_levels, 4)
+        sec_o_sw = [_table_sectors(g, x_, k_, 4) for x_, k_ in sweeps_o]
+        sec8 = _table_sectors(g, xs, g.num_levels, 8)
+        sec8_o = _table_sectors(g, xo, g.num_levels, 8)
         z_bytes, w_bytes = nbytes(*zs), nbytes(*ws, *bs)
         del rows, u, dlib, zs
 
@@ -818,11 +981,31 @@ def grid_kernel_checks(dev, results):
         "sdf_mlp_grid": bound_ms(mlp_flops(sws, n_sweep), n_sweep * (inp.shape[1] * 2 + 4)
                                  + nbytes(*sws, *sbs), H100_BF16_FLOPS),
     }
+    # at the grid step's points: the table sectors those points reach (K5:
+    # its float32 gradient's rows, 8 bytes each); the sweeps' averaged
+    sw_o = [bound_ms(len(x_) * k_ * (8 * 4 + 8 * 4 + 30),
+                     len(x_) * 12 + len(x_) * L2 * 4 + n_s * 32, H100_F32_FLOPS)
+            for (x_, k_), n_s in zip(sweeps_o, sec_o_sw)]
+    bounds_rays = {
+        "hash_encode": bound_ms(No * 16 * per_pl, No * 12 + No * L2 * 4 * 4 + sec_o * 32,
+                                H100_F32_FLOPS),
+        "hash_encode_sweep": (mean([b for b, _ in sw_o]), sw_o[0][1]),
+        "hash_encode_bwd": bound_ms(No * 16 * 8 * (2 * 4 * 2),
+                                    No * 12 + No * L2 * 4 * 4 + sec8_o * 32, H100_F32_FLOPS),
+    }
     for name in ("hash_encode", "hash_encode_bwd", "sdf_grad_grid", "sdf_grad_grid_bwd"):
         (b, by), (k, pl) = bounds[name], ms[name]
         results[name] = {"max_abs_err": errs[name]["bfloat16"],
                          "max_abs_err_f32": errs[name]["float32"], "ms": k, "plain_ms": pl,
                          "bound_ms": b, "bound_by": by, "library_ms": None}
+    for name, tag in (("hash_encode", ""), ("hash_encode_sweep", "_sweep"), ("hash_encode_bwd", "")):
+        (b, by), (d_r, d_o) = bounds_rays[name], dev_ms[name]
+        results[name.replace("_sweep", "")].update({
+            f"ms{tag}_rays": ms_rays[name], f"bound_ms{tag}_rays": b, f"bound_by{tag}_rays": by,
+            f"device_ms{tag}": d_r, f"device_ms{tag}_rays": d_o, f"host_us{tag}": host[name]})
+    results["hash_encode"].update(table_sectors_rays=sec_o, table_sectors_sweep_rays=sec_o_sw,
+                                  points_rays=No, points_sweep_rays=[len(x_) for x_, _ in sweeps_o])
+    results["hash_encode_bwd"].update(table_sectors_f32=sec8, table_sectors_f32_rays=sec8_o)
     (b, by), (k, pl) = bounds["hash_encode_sweep"], ms["hash_encode_sweep"]
     results["hash_encode"].update(ms_sweep=k, plain_ms_sweep=pl, bound_ms_sweep=b,
                                   bound_by_sweep=by,
@@ -836,6 +1019,9 @@ def grid_kernel_checks(dev, results):
                               max_abs_err_grid_f32=errs["sdf_mlp_grid"]["float32"])
     print(f"grid kernels (bf16, ms per launch; library index_add_ {lib_ms:.3f} ms): "
           f"{json.dumps({n: {'ms': v[0], 'plain_ms': v[1], 'bound_ms': bounds[n][0]} for n, v in ms.items()})}",
+          flush=True)
+    print(f"grid kernels at the grid step's points (bf16; device ms random / step's, host us): "
+          f"{json.dumps({n: {'ms_rays': ms_rays[n], 'bound_ms_rays': bounds_rays[n][0], 'device_ms': dev_ms[n], 'host_us': host[n]} for n in rays})}",
           flush=True)
     del model
     torch.cuda.empty_cache()

@@ -21,6 +21,10 @@
 // Sums run in the order the atomics land, which changes from run to run:
 // float32 rounding of a sum of up to a few hundred terms per row.
 //
+// The levels' constants sit in shared memory (hashgrid.cuh Level: a warp's
+// lanes work on different levels) and a level's modulo is a mask or a
+// multiply-high, as in K6.
+//
 // Bound on the card: bytes (the cotangents read once, the float32 table
 // gradient written once; the atomics resolve in the 50 MB L2, which holds
 // the bench schedule's 49 MB gradient only in part). On sm_90 one float2
@@ -44,6 +48,9 @@ __global__ void __launch_bounds__(THREADS)
 hash_encode_bwd_kernel(const float* __restrict__ x, int N, const __grid_constant__ HashLevels h,
                        float size, const float* __restrict__ c_feat,
                        const float* __restrict__ c_tg, float* __restrict__ d_table) {
+  __shared__ Level sl[HG_MAX_LEVELS];
+  stage_levels(h, sl);
+  __syncthreads();
   const int L = h.n_levels;
   const long long t = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (t >= static_cast<long long>(N) * L) return;
@@ -51,7 +58,9 @@ hash_encode_bwd_kernel(const float* __restrict__ x, int N, const __grid_constant
   unsigned row[8];
   float W[8], dW[3][8];
   const float xp[3] = {x[(size_t)p * 3], x[(size_t)p * 3 + 1], x[(size_t)p * 3 + 2]};
-  if (!corners(h, l, xp, size, row, W, dW)) return;
+  float x01[3];
+  if (!unit_coords(xp, size, x01)) return;
+  corners(sl[l], x01, row, W, dW);
   const float2 cf = reinterpret_cast<const float2*>(c_feat)[t];
   float2 ct[3] = {make_float2(0.0f, 0.0f), make_float2(0.0f, 0.0f), make_float2(0.0f, 0.0f)};
   if (c_tg != nullptr) {

@@ -10,8 +10,8 @@ and returns ``cudaGetLastError()``; ``check`` raises on a non-zero code.
 
 ``launches[name]`` counts the launches of each kernel (``KERNELS``: one per
 source, and K1-PE apart from K1): a wrapper adds one right after its kernel
-was launched, and nowhere else; ``reference_launches`` those of K2f's order
-reference.
+was launched, and nowhere else; ``reference_launches`` those of K2f's and
+K4's order references.
 """
 
 from __future__ import annotations
@@ -43,9 +43,10 @@ KERNELS = SOURCES + ("sdf_mlp_pe",)
 SOURCE_OF = {**{name: name for name in SOURCES}, "sdf_mlp_pe": "sdf_mlp"}
 
 launches = {name: 0 for name in KERNELS}
-# launches of a kernel no model path runs: K2f's SIMT kernel at bf16, the
-# order reference of the render chunk's kernel (sdf_grad.sdf_mlp_with_grad_simt)
-reference_launches = {"sdf_grad_simt": 0}
+# launches of the order references no model path runs: K2f's SIMT kernel at
+# bf16, the render chunk kernel's (sdf_grad.sdf_mlp_with_grad_simt), and K4
+# at depth 1, the sequential bisection (sampler_machinery.sampler_iter_machinery_seq)
+reference_launches = {"sdf_grad_simt": 0, "sampler_machinery_seq": 0}
 build_logs: dict = {}
 _libs: dict = {}
 

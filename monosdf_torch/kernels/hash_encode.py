@@ -10,9 +10,12 @@ their three spatial tangents. K5 (``hash_encode_bwd``,
 ``pl.pallas_call`` at :196): the transpose of the encode and of its
 linearisation, each corner's cotangent added to its table row atomically.
 
-Both run one thread per (point, level) and are bound by bytes: the corner
-reads (the bf16 table fits the card's L2) and the float32 outputs. K5's
-atomics sum in a run-dependent order.
+Both are bound by bytes: the corner reads (the bf16 table fits the card's
+L2) and the float32 outputs. K6 runs one thread per active (point, level)
+pair and writes the inactive levels' zero columns apart; K5 one thread per
+(point, level), its atomics summing in a run-dependent order. A level's
+``idx % hms`` is a mask or a multiply-high in both (``level_mod`` below is
+its host twin, which the tests hold to ``%``).
 
 ``encode_diff`` puts them under a ``torch.autograd.Function``: K6 with
 tangents forward, K5 backward, the gradient going to the float32 table
@@ -27,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..ops.hashgrid import HashGridConfig, corner_geometry, corner_weights, encode_flat, level_rules
@@ -38,25 +42,72 @@ MAX_LEVELS = 32  # csrc/hashgrid.cuh HG_MAX_LEVELS
 _c = ctypes.c_void_p
 
 
+def level_magic(hms: int):
+    """(mask, magic, shift) of a level of ``hms`` rows: a power of two takes
+    ``idx & mask`` (magic 0); any other size ``idx - q * hms`` with the
+    quotient from a 32-bit multiply-high, ``t = mulhi(magic, idx)``, ``q =
+    ((idx - t) // 2 + t) >> shift`` (csrc/hashgrid.cuh level_mod)."""
+    if hms & (hms - 1) == 0:
+        return hms - 1, 0, 0
+    shift = hms.bit_length() - 1
+    return 0, ((1 << (33 + shift)) // hms + 1) % (1 << 32), shift
+
+
+def level_mod(idx: np.ndarray, hms: int, mask: int, magic: int, shift: int) -> np.ndarray:
+    """``idx % hms`` (uint32 ``idx``) as the kernels compute it from the
+    level's (mask, magic, shift), in numpy uint64 arithmetic."""
+    idx = idx.astype(np.uint64)
+    if magic == 0:
+        return idx & np.uint64(mask)
+    t = (idx * np.uint64(magic)) >> np.uint64(32)
+    q = (((idx - t) >> np.uint64(1)) + t) >> np.uint64(shift)
+    return idx - q * np.uint64(hms)
+
+
+def _i32(v: int) -> int:
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
 @functools.lru_cache(maxsize=16)
 def _levels(cfg: HashGridConfig, size: float, tangent_scale: float):
-    """csrc/hashgrid.cuh HashLevels as (int desc, float desc)."""
+    """csrc/hashgrid.cuh HashLevels as (int desc, float desc), and the
+    table's rows."""
     rules = level_rules(cfg)
     L = len(rules)
     if L > MAX_LEVELS:
         raise ValueError(f"{L} levels; the kernels take at most {MAX_LEVELS}")
     pad = [0] * (MAX_LEVELS - L)
     col = lambda i, f=int: [f(r[i]) for r in rules] + pad
+    magics = [level_magic(r[1]) for r in rules]
     desc = [L] + col(0) + col(1) + col(4) + col(5) + col(6)
+    for i in range(3):  # mask, magic, shift
+        desc += [_i32(m[i]) for m in magics] + pad
     fdesc = col(2, float) + col(3, float) + [r[3] / (2.0 * size) * tangent_scale for r in rules] + pad
-    return (ctypes.c_int * len(desc))(*desc), (ctypes.c_float * len(fdesc))(*fdesc)
+    return ((ctypes.c_int * len(desc))(*desc), (ctypes.c_float * len(fdesc))(*fdesc),
+            cfg.table_size)
 
 
-def _check(cfg: HashGridConfig, table: torch.Tensor, x: torch.Tensor):
+@functools.cache
+def _lib(name: str):
+    """The loaded library with its launch function's signature set."""
+    lib = build.load(name)
+    if name == NAME:
+        fn = lib.hash_encode_launch
+        fn.argtypes = [_c, _c, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_float), ctypes.c_float, _c, _c, ctypes.c_int, _c]
+    else:
+        fn = lib.hash_encode_bwd_launch
+        fn.argtypes = [_c, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_float), ctypes.c_float, _c, _c, _c, ctypes.c_int, _c]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(cfg: HashGridConfig, table: torch.Tensor, x: torch.Tensor, rows: int):
     if cfg.level_dim != 2:
         raise ValueError(f"level_dim {cfg.level_dim}: the kernels take 2 channels")
     dt = torch.bfloat16 if cfg.table_dtype == "bfloat16" else torch.float32
-    build.require(table, "table", dt, (cfg.table_size * 2,), x.device)
+    build.require(table, "table", dt, (rows * 2,), x.device)
     build.require(x, "x", torch.float32, (x.shape[0], 3), x.device)
 
 
@@ -72,19 +123,14 @@ def hash_encode_fwd(table, cfg: HashGridConfig, x, size: float = 1.0, n_levels=N
     launches K6."""
     if x.device.type == "cpu":
         return hash_encode_fwd_plain(table, cfg, x, size, n_levels, tangents, tangent_scale)
-    _check(cfg, table, x)
+    desc, fdesc, rows = _levels(cfg, float(size), float(tangent_scale))
+    _check(cfg, table, x, rows)
     N, L = x.shape[0], cfg.num_levels
     K = L if n_levels is None else min(n_levels, L)
     feat = torch.empty(N, 2 * L, dtype=torch.float32, device=x.device)
     tg = torch.empty(3, N, 2 * L, dtype=torch.float32, device=x.device) if tangents else None
     if N > 0:
-        desc, fdesc = _levels(cfg, float(size), float(tangent_scale))
-        lib = build.load(NAME)
-        lib.hash_encode_launch.restype = ctypes.c_int
-        lib.hash_encode_launch.argtypes = [_c, _c, ctypes.c_int, ctypes.c_int,
-                                           ctypes.POINTER(ctypes.c_int),
-                                           ctypes.POINTER(ctypes.c_float), ctypes.c_float, _c, _c,
-                                           ctypes.c_int, _c]
+        lib = _lib(NAME)
         err = lib.hash_encode_launch(build.ptr(table), build.ptr(x), N, K, desc, fdesc,
                                      float(size), build.ptr(feat),
                                      build.ptr(tg) if tg is not None else None,
@@ -139,14 +185,10 @@ def hash_encode_bwd(cfg: HashGridConfig, x, c_feat, c_tg=None, size: float = 1.0
     if c_tg is not None:
         ct = c_tg.float().contiguous()
         build.require(ct, "c_tg", torch.float32, (3, N, 2 * L), dev)
-    d = torch.zeros(cfg.table_size * 2, dtype=torch.float32, device=dev)
+    desc, fdesc, rows = _levels(cfg, float(size), float(tangent_scale))
+    d = torch.zeros(rows * 2, dtype=torch.float32, device=dev)
     if N > 0:
-        desc, fdesc = _levels(cfg, float(size), float(tangent_scale))
-        lib = build.load(BWD_NAME)
-        lib.hash_encode_bwd_launch.restype = ctypes.c_int
-        lib.hash_encode_bwd_launch.argtypes = [_c, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                                               ctypes.POINTER(ctypes.c_float), ctypes.c_float,
-                                               _c, _c, _c, ctypes.c_int, _c]
+        lib = _lib(BWD_NAME)
         err = lib.hash_encode_bwd_launch(build.ptr(x), N, desc, fdesc, float(size), build.ptr(cf),
                                          build.ptr(ct) if ct is not None else None, build.ptr(d),
                                          int(cfg.table_dtype == "bfloat16"), build.stream_ptr(dev))

@@ -1,0 +1,119 @@
+"""Hash and time K4 (the sampler machinery), K6 (the hash encode) and K5
+(its table gradient) on the inputs of chip_smoke.py, so that two
+checkouts can be compared bit for bit and in turns in one run on one card:
+
+    python monosdf_torch/scripts/kernel_ab.py [--root CHECKOUT] [--reps 20]
+
+``--root`` imports ``monosdf_torch`` from another checkout (default: this
+one); the inputs and the timers are this checkout's chip_smoke.py
+(``k4_inputs``, ``grid_step_points``, ``cuda_ms``, ``device_ms``,
+``host_us``). Prints one JSON line: per kernel and input set, a digest of
+the outputs (sha256 of their bytes), the wall ms per call, the device ms
+per call and the host us per call. The inputs:
+- K4 at the 5 sampler iterations' shapes, beta0 = 0.01, 1e-3 and 1e-4
+  (small betas reach exp's subnormal range), float32 and bf16;
+- K6 and K5 on the hash-grid model's bf16 table (random values) at uniform
+  random points of the scene box and at the points of one grid training
+  step (its sweeps' and the differentiated encode's); K5's digest from
+  single-point calls, so that no table row takes more than two atomic adds
+  and the sums do not depend on their order.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+HERE = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
+
+
+def digest(*ts) -> str:
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=None)
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+
+    root = os.path.abspath(args.root or HERE)
+    sys.path.insert(0, root)
+    from monosdf_torch.cli.eval import bench_grids_config, bench_mlp_config
+    from monosdf_torch.kernels import hash_encode as k6
+    from monosdf_torch.kernels import sampler_machinery as k4
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"root": root, "card": torch.cuda.get_device_name(0)}
+    timing = lambda fn, kernel: {"ms": cs.cuda_ms(fn, args.reps),
+                                 "device_ms": cs.device_ms(fn, kernel, args.reps),
+                                 "host_us": cs.host_us(fn)}
+
+    # K4
+    sc = bench_mlp_config("bfloat16").sampler
+    rows = cs.k4_inputs(np.random.default_rng(0), dev, sc.max_total_iters, sc.N_samples_eval)
+    k4_out = {}
+    for b0 in (1e-2, 1e-3, 1e-4):
+        for dname, d in (("float32", None), ("bfloat16", torch.bfloat16)):
+            outs = [o for st, dt, ds, bp, _, last in rows
+                    for o in k4.sampler_iter_machinery(st, dt, ds, bp, torch.tensor(b0, device=dev),
+                                                       0.1, 1e-6, last, 10, d)]
+            k4_out[f"beta0={b0} {dname}"] = digest(*outs)
+    calls = [lambda r=r: k4.sampler_iter_machinery(*r[:5], 0.1, 1e-6, r[5], 10, torch.bfloat16)
+             for r in rows]
+    per = [timing(c, "sampler_machinery") for c in calls]
+    for key in ("ms", "device_ms"):
+        k4_out[f"{key}_per_shape"] = [p[key] for p in per]
+        k4_out[key] = sum(k4_out[f"{key}_per_shape"]) / len(per)
+    k4_out["host_us"] = per[0]["host_us"]
+    out["sampler_machinery"] = k4_out
+
+    # K6 and K5
+    gcfg = bench_grids_config("bfloat16")
+    g, df = gcfg.implicit.grid, gcfg.implicit.divide_factor
+    gen = torch.Generator().manual_seed(0)
+    tab = ((torch.rand(g.table_size * 2, generator=gen) * 2 - 1) * 1e-2).to(dev).to(torch.bfloat16)
+    sweeps, xo = cs.grid_step_points(gcfg, dev)
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    N, K = xo.shape[0], gcfg.sweep_max_level
+    sets = {"random": ([(t(rng.uniform(-1.12, 1.12, sweeps[0][0].shape)) / df, K)],
+                       t(rng.uniform(-1.12, 1.12, (N, 3))) / df),
+            "step": (sweeps, xo)}
+    out["step_points"] = digest(xo, *(x for x, _ in sweeps))
+    cf, ct = t(rng.normal(size=(N, 32))), t(rng.normal(size=(3, N, 32)))
+    for tag, (sw, xs) in sets.items():
+        step = lambda: k6.hash_encode_fwd(tab, g, xs, 1.0, None, True, 1.0 / df)
+        sweep = [lambda x=x, k=k: k6.hash_encode_fwd(tab, g, x, 1.0, k) for x, k in sw]
+        bwd = lambda: k6.hash_encode_bwd(g, xs, cf, ct, 1.0, 1.0 / df)
+        one = [k6.hash_encode_bwd(g, xs[i:i + 1].contiguous(), cf[i:i + 1].contiguous(),
+                                  ct[:, i:i + 1].contiguous(), 1.0, 1.0 / df)
+               for i in range(0, N, N // 32)]
+        out.setdefault("hash_encode", {})[tag] = {"digest": digest(*step()),
+                                                  **timing(step, "hash_encode")}
+        per = [timing(f, "hash_encode") for f in sweep]
+        out.setdefault("hash_encode_sweep", {})[tag] = {
+            "digest": digest(*(f() for f in sweep)),
+            **{k: sum(p[k] for p in per) / len(per) for k in per[0]}}
+        out.setdefault("hash_encode_bwd", {})[tag] = {
+            "digest": digest(*(v for d in one for v in (d.nonzero().flatten(), d[d != 0]))),
+            **timing(bwd, "hash_encode_bwd")}
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -25,6 +25,7 @@ from monosdf_torch.kernels.radiance_norm import (
 from monosdf_torch.kernels.sampler_machinery import (
     sampler_iter_machinery,
     sampler_iter_machinery_plain,
+    sampler_iter_machinery_seq,
 )
 from monosdf_torch.kernels.sdf_grad import (
     sdf_mlp_with_grad,
@@ -285,12 +286,10 @@ def test_autograd_functions_launch_the_backward_kernels(dev):
         "radiance_norm_bwd": 1}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("N", [128, 640])
-def test_k4_matches_plain(dev, dtype, N):
-    R = 96
-    rng = np.random.default_rng(N)
+def _k4_rays(dev, R, N, seed):
+    """K4's inputs for R rays of N sorted samples, an SDF crossing zero once
+    with noise: (sdf, dists_tail, d_star, beta_prev)."""
+    rng = np.random.default_rng(seed)
     z = np.sort(rng.uniform(0.0, 3.85, (R, N)), axis=-1)
     sdf = np.tanh(rng.uniform(0.8, 2.5, (R, 1)) - z) * 0.6 + 0.01 * rng.normal(size=(R, N))
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
@@ -299,6 +298,14 @@ def test_k4_matches_plain(dev, dtype, N):
     dt = t(np.concatenate([dists, np.full((R, 1), 1e10)], -1))
     ds = torch.nn.functional.pad(_d_star(zt, st), (0, 1)).contiguous()
     bp = t(np.sqrt(np.sum(dists**2, -1) / (4 * np.log(1.1)))[:, None])
+    return st, dt, ds, bp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N", [128, 640])
+def test_k4_matches_plain(dev, dtype, N):
+    st, dt, ds, bp = _k4_rays(dev, 96, N, N)
     b0 = torch.tensor(0.01, device=dev)
     for last in (False, True):
         (bk, pk), (bpl, ppl) = (
@@ -310,6 +317,41 @@ def test_k4_matches_plain(dev, dtype, N):
         assert torch.isfinite(pk).all()
         atol, rtol = K4_PDF_TOL[dtype]
         assert ((pk - ppl).abs() <= atol + rtol * ppl.abs()).all()
+
+
+# K4's speculative kernel (4 warps a ray, the 3 midpoints of 2 bisection
+# steps a round, the fast division where it keeps div.rn's bits) against its
+# order reference, the same kernel at depth 1 (the sequential loop, div.rn
+# throughout): bit for bit. 97 rays (a few blocks) and 4,096 (more blocks
+# than the card holds at once); N = 352 is 11 samples a lane; beta0 1e-2
+# and 1e-4 (the small one drives exp towards its subnormal range, where the
+# kernel takes div.rn); the plain version within the smoke's bars
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N", [128, 352, 640])
+@pytest.mark.parametrize("R", [97, 4096])
+def test_k4_speculative_kernel_equals_its_sequential_reference(dev, R, N, dtype):
+    st, dt, ds, bp = _k4_rays(dev, R, N, R + N)
+    before, ref_before = build.launches["sampler_machinery"], build.reference_launches[
+        "sampler_machinery_seq"]
+    runs = 0
+    for b0 in (1e-2, 1e-4):
+        for last in (False, True):
+            args = (st, dt, ds, bp, torch.tensor(b0, device=dev), 0.1, 1e-6, last, 10, dtype)
+            bk, pk = sampler_iter_machinery(*args)
+            bk2, pk2 = sampler_iter_machinery(*args)
+            bs, ps = sampler_iter_machinery_seq(*args)
+            bpl, ppl = sampler_iter_machinery_plain(*args)
+            runs += 1
+            torch.cuda.synchronize()
+            for a, b in ((bk, bs), (pk, ps), (bk, bk2), (pk, pk2)):
+                assert torch.equal(_bits(a), _bits(b))
+            assert (bk - bpl).abs().max().item() <= bp.max().item() / 2**10
+            assert torch.isfinite(pk).all()
+            atol, rtol = K4_PDF_TOL[dtype]
+            assert ((pk - ppl).abs() <= atol + rtol * ppl.abs()).all()
+    assert build.launches["sampler_machinery"] - before == 2 * runs
+    assert build.reference_launches["sampler_machinery_seq"] - ref_before == runs
 
 
 def _bits(t):
@@ -519,6 +561,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         with pytest.raises(ValueError):  # N not a multiple of 32
             sampler_iter_machinery(s, s, s, s[:, :1].contiguous(), torch.tensor(0.01, device=dev),
                                    0.1, 1e-6, False)
+    # K6 counts (point, level) pairs and zero columns in 32-bit ints: its
+    # launch refuses a count past that before it reads a buffer
+    from monosdf_torch.kernels import hash_encode as k6
+
+    desc, fdesc, _ = k6._levels(_grid_cfg("float32"), 1.0, 1.0)
+    launch = k6._lib(k6.NAME).hash_encode_launch
+    for n, k in ((2**29, 6), (2**29, 0)):  # 3.2e9 pairs; 3.2e9 zero columns
+        assert launch(None, None, n, k, desc, fdesc, 1.0, None, None, 0, None) != 0
 
 
 # -- the grid model's kernels: K6, K5, K7 ------------------------------------
@@ -577,6 +627,76 @@ def test_k6_k5_match_plain(dev, dtype):
     torch.cuda.synchronize()
     assert build.launches["hash_encode"] - before["hash_encode"] == 3
     assert build.launches["hash_encode_bwd"] - before["hash_encode_bwd"] == 1
+
+
+# K6 against its plain version over the level schedules it meets: one
+# level, 6, and 16 mixing dense levels of non-power-of-two sizes with hashed
+# ones; both hash schemes, both table types; 1,001 points (a ragged last
+# block), a fifth of them outside the box, and ray-ordered points (1,001 =
+# 7 rays x 143 samples through the box); the sweep's truncation (the first
+# levels only, zeros after) with and without tangents; two runs give the
+# same bits. Features and tangents at ENCODE_TOL (per tensor).
+ENCODE_TOL = (1e-4, 1e-4)
+K6_CASES = {
+    "1": dict(num_levels=1, base_resolution=17, desired_resolution=None),
+    "6": dict(num_levels=6, base_resolution=16, log2_hashmap_size=12, desired_resolution=128),
+    "16": dict(num_levels=16, base_resolution=3, log2_hashmap_size=15, desired_resolution=512),
+}
+
+
+def _ray_points(rng, n_rays, n_per_ray):
+    """(n_rays * n_per_ray, 3) points in ray order: rays from 1.5 off the
+    centre towards the middle of the box [-1, 1]^3, each at uniform spacing
+    from where it enters the box to where it leaves."""
+    o = rng.normal(size=(n_rays, 3))
+    o = 1.5 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rng.uniform(-0.5, 0.5, (n_rays, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    with np.errstate(divide="ignore"):
+        t1, t2 = (-1.0 - o) / d, (1.0 - o) / d
+    near = np.maximum(np.max(np.minimum(t1, t2), axis=1), 0.0)
+    far = np.min(np.maximum(t1, t2), axis=1)
+    z = near[:, None] + (far - near)[:, None] * np.linspace(0.0, 1.0, n_per_ray)[None]
+    return (o[:, None] + z[..., None] * d[:, None]).reshape(-1, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scheme", ["add", "xor"])
+@pytest.mark.parametrize("levels", list(K6_CASES))
+def test_k6_matches_plain_over_levels_schemes_and_points(dev, levels, scheme, table_dtype):
+    from monosdf_torch.kernels.hash_encode import hash_encode_fwd, hash_encode_fwd_plain
+    from monosdf_torch.ops.hashgrid import HashGridConfig
+
+    cfg = HashGridConfig(level_dim=2, hash_scheme=scheme, table_dtype=table_dtype,
+                         param_flat=True, **K6_CASES[levels])
+    gen = torch.Generator().manual_seed(1)
+    table = (torch.rand(cfg.table_size * 2, generator=gen) * 2 - 1).to(dev)
+    table = table.to(torch.bfloat16) if table_dtype == "bfloat16" else table
+    rng = np.random.default_rng(2)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    points = {"box": t(rng.uniform(-1.25, 1.25, (1001, 3))),
+              "rays": t(_ray_points(rng, 7, 143))}
+    L = cfg.num_levels
+    atol, rtol = ENCODE_TOL
+    before = build.launches["hash_encode"]
+    for x in points.values():
+        for n_levels in sorted({None, 1, min(3, L), L}, key=lambda v: -1 if v is None else v):
+            for tangents in (False, True):
+                out = hash_encode_fwd(table, cfg, x, 1.0, n_levels, tangents, 0.7)
+                again = hash_encode_fwd(table, cfg, x, 1.0, n_levels, tangents, 0.7)
+                ref = hash_encode_fwd_plain(table, cfg, x, 1.0, n_levels, tangents, 0.7)
+                out, again, ref = ((v,) if not tangents else v for v in (out, again, ref))
+                for a, b, c in zip(out, ref, again):
+                    assert a.shape == b.shape and torch.isfinite(a).all()
+                    err = (a - b).abs().max().item()
+                    assert err <= atol + rtol * b.abs().max().item(), (n_levels, tangents, err)
+                    assert torch.equal(_bits(a), _bits(c))
+                    if n_levels is not None and n_levels < L:
+                        assert not a.reshape(*a.shape[:-1], L, 2)[..., n_levels:, :].any()
+    torch.cuda.synchronize()
+    assert build.launches["hash_encode"] - before == 2 * 2 * 2 * len(
+        {None, 1, min(3, L), L})
 
 
 # 40,007 points: 1,251 32-point tiles of the bf16 K7f (with Z: the tensor

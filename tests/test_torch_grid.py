@@ -393,3 +393,42 @@ def test_grids_clis_run_on_the_cpu(tmp_path):
     rows = teval.main(["--grids", "--device", "cpu", "--params", str(out), "--n_images", "1",
                        "--img_res", "2", "--split_n_pixels", "4", "--out_dir", str(tmp_path)])
     assert len(rows) == 1 and np.isfinite(rows[0][1])
+
+
+# the hash grids whose level constants K6 and K5 take: the bench's, the
+# parity tests', the card tests' (6 levels; 16 levels mixing dense levels of
+# non-power-of-two sizes with hashed ones) and one level alone
+LEVEL_CASES = {
+    "bench": lambda: teval.bench_grids_config().implicit.grid,
+    "parity": lambda: th.HashGridConfig(**GRID),
+    "card-6": lambda: th.HashGridConfig(num_levels=6, base_resolution=16, log2_hashmap_size=12,
+                                        desired_resolution=128, hash_scheme="add"),
+    "card-16-xor": lambda: th.HashGridConfig(num_levels=16, base_resolution=3,
+                                             log2_hashmap_size=15, desired_resolution=512,
+                                             hash_scheme="xor"),
+    "one-level": lambda: th.HashGridConfig(num_levels=1, base_resolution=17,
+                                           desired_resolution=None),
+}
+
+
+@pytest.mark.parametrize("case", list(LEVEL_CASES))
+def test_level_constants_reproduce_the_modulo(case):
+    """The kernels' per-level (mask, magic, shift), as _levels packs them,
+    give idx % hms for every level over a sweep of uint32 indices (random,
+    the ends of the range, and multiples of hms and their neighbours)."""
+    from monosdf_torch.kernels.hash_encode import MAX_LEVELS, _levels, level_mod
+
+    cfg = LEVEL_CASES[case]()
+    desc, _, rows = _levels(cfg, 1.0, 1.0)
+    d = np.array(list(desc), dtype=np.int64) % (1 << 32)  # the C side reads them as uint32
+    L = int(d[0])
+    assert L == cfg.num_levels and rows == cfg.table_size
+    col = lambda i: d[1 + i * MAX_LEVELS:1 + i * MAX_LEVELS + L]
+    rng = np.random.default_rng(0)
+    base = np.concatenate([rng.integers(0, 2**32, 20000, dtype=np.uint64),
+                           np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 1], dtype=np.uint64)])
+    for hms, mask, magic, shift in zip(col(1), col(5), col(6), col(7)):
+        k = np.arange(1, 200, dtype=np.uint64) * np.uint64(hms)
+        idx = np.concatenate([base, k % 2**32, (k - 1) % 2**32, (k + 1) % 2**32])
+        got = level_mod(idx, int(hms), int(mask), int(magic), int(shift))
+        assert (got == idx % np.uint64(hms)).all(), (case, hms)

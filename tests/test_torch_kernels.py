@@ -282,15 +282,41 @@ def test_k2f_simt_reference_takes_plain_on_cpu(dtype):
     assert build.launches == before and build.reference_launches == ref_before
 
 
+def test_k4_order_reference_takes_the_plain_version_on_the_cpu():
+    """K4 at depth 1, the speculative kernel's order reference
+    (sampler_iter_machinery_seq), takes the plain version on a CPU tensor,
+    as the main wrapper does, and launches nothing."""
+    from monosdf_torch.kernels.sampler_machinery import sampler_iter_machinery_seq
+
+    rng = np.random.default_rng(3)
+    R, N = 5, 64
+    z = np.sort(rng.uniform(0.0, 3.0, (R, N)), axis=-1)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    sdf = t(np.tanh(1.5 - z) * 0.6)
+    dists = np.diff(z, axis=-1)
+    dt = t(np.concatenate([dists, np.full((R, 1), 1e10)], -1))
+    ds = t(np.concatenate([np.abs(rng.normal(size=(R, N - 1))) * 0.05, np.zeros((R, 1))], -1))
+    bp = t(np.sqrt(np.sum(dists**2, -1) / (4 * np.log(1.1)))[:, None])
+    before, ref_before = dict(build.launches), dict(build.reference_launches)
+    for last in (False, True):
+        args = (sdf, dt, ds, bp, torch.tensor(0.01), 0.1, 1e-6, last, 10, None)
+        for a, b, c in zip(sampler_iter_machinery_seq(*args), sampler_iter_machinery(*args),
+                           sampler_iter_machinery_plain(*args)):
+            assert torch.equal(a, b) and torch.equal(a, c)
+    assert build.launches == before and build.reference_launches == ref_before
+
+
 def test_reset_launch_counts_clears_the_reference_count():
     """The smoke counts each main path from 0: the reset clears the kernels'
-    counts and the order reference's."""
+    counts and the order references' (K2f's SIMT kernel, K4 at depth 1)."""
     saved = dict(build.launches), dict(build.reference_launches)
     try:
         build.launches["sdf_grad"] += 3
         build.reference_launches["sdf_grad_simt"] += 2
+        build.reference_launches["sampler_machinery_seq"] += 1
         build.reset_launch_counts()
-        assert not any(build.launches.values()) and build.reference_launches == {"sdf_grad_simt": 0}
+        assert not any(build.launches.values()) and build.reference_launches == {
+            "sdf_grad_simt": 0, "sampler_machinery_seq": 0}
     finally:
         build.launches.update(saved[0])
         build.reference_launches.update(saved[1])
