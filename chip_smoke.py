@@ -32,10 +32,12 @@ through K3 and through K8a. Phases (any failure exits non-zero):
    104,448 points, K1 at the grid trunk's 71-wide input; K6 and K5 again
    at ray-ordered points (1024 rays through the box, as the model gives
    them: K6 held to its plain version there, wall, device and host times,
-   bounds from those points' table sectors); the radiance
+   bounds from those points' table sectors, K5's index_add_ yardstick and
+   the device time of the memset that zeroes its gradient); the radiance
    kernels at the step's 100,352 samples: K3f/K3b with the union model's
    32-wide code, K8a forward and backward on its raw gradient, K8b forward
-   and backward on the nerf trunk's 283-wide input;
+   and backward on the nerf trunk's 283-wide input (its bf16 backward run
+   twice, bit for bit);
 4. render 4 synthetic 64x64 views through cli/eval.py at full width
    (geometric init plus seeded noise) with the kernels, counting launches
    (K1 = K4 = 5 and K2 = K3 = 1 per chunk, K2f's and K4's order
@@ -167,7 +169,8 @@ PATHS = {
 SWEEPS = ("sdf_mlp", "sdf_mlp_pe", "sampler_machinery")  # the sampler's kernels
 # the libraries whose bf16 kernels run on the tensor cores (wgmma: HGMMA in SASS)
 TENSOR_CORE_LIBS = ("sdf_mlp", "sdf_grad", "sdf_grad_bwd", "sdf_grad_grid_bwd", "radiance_norm_bwd",
-                    "sdf_grad_grid", "radiance_norm", "radiance_split", "radiance_split_bwd")
+                    "sdf_grad_grid", "radiance_norm", "radiance_split", "radiance_split_bwd",
+                    "radiance_mlp", "radiance_mlp_bwd")
 WARMUP_STEPS, TIMED_STEPS = 3, 20
 # stated tolerances, kernel vs plain version on the card: err <= atol + rtol * max|plain|;
 # bf16: a rounding that lands on the neighbouring bf16 value (ulp 2^-7 at 1)
@@ -957,6 +960,18 @@ def grid_kernel_checks(dev, results):
                   "hash_encode_bwd": (device_ms(timed["hash_encode_bwd"][0], "hash_encode_bwd"),
                                       device_ms(bwd_o, "hash_encode_bwd"))}
         host = {n: host_us(timed[n][0]) for n in rays}
+        # K5's yardstick at the step's points: one index_add_ of its corner
+        # terms; and the device time in its call besides the kernel: the
+        # memset that zeroes the gradient (kernels/hash_encode.py)
+        rows_o, u_o = k6.corner_terms(g, xo, cfo, cto, 1.0, 1.0 / df)
+        dlib_o = torch.zeros(g.table_size, 2, dtype=torch.float32, device=dev)
+        lib_ms_rays = cuda_ms(lambda: dlib_o.index_add_(0, rows_o, u_o), reps=5)
+        del rows_o, u_o, dlib_o
+        prof_b = _profile(bwd_o, 5, "K5 at the grid step's points")
+        memset_ms = prof_b["other_ms"]
+        print(f"K5 at the grid step's points: the gradient's memset {memset_ms:.5f} device ms a "
+              f"call ({json.dumps(prof_b['other_top_ms'])}), the kernel "
+              f"{prof_b['kernels_ms']['hash_encode_bwd']:.5f}", flush=True)
         sec_o = _table_sectors(g, xo, g.num_levels, 4)
         sec_o_sw = [_table_sectors(g, x_, k_, 4) for x_, k_ in sweeps_o]
         sec8 = _table_sectors(g, xs, g.num_levels, 8)
@@ -1012,7 +1027,8 @@ def grid_kernel_checks(dev, results):
                                   max_abs_err_sweep=errs["hash_encode_sweep"]["bfloat16"],
                                   max_abs_err_sweep_f32=errs["hash_encode_sweep"]["float32"],
                                   table_sectors=sec, table_sectors_sweep=sec_sw)
-    results["hash_encode_bwd"]["library_ms"] = lib_ms
+    results["hash_encode_bwd"].update(library_ms=lib_ms, library_ms_rays=lib_ms_rays,
+                                      memset_device_ms_rays=memset_ms)
     (b, by), (k, pl) = bounds["sdf_mlp_grid"], ms["sdf_mlp_grid"]
     results["sdf_mlp"].update(ms_grid=k, plain_ms_grid=pl, bound_ms_grid=b, bound_by_grid=by,
                               max_abs_err_grid=errs["sdf_mlp_grid"]["bfloat16"],
@@ -1102,14 +1118,22 @@ def radiance_kernel_checks(dev, results):
                 r1, e1 = _ratio(zip(a, b), *(GRAD_TOL if grads else TOL)[dname])
                 r2, e2 = _ratio(zip(a_at_tol, b_at_tol), *TOL[dname])
                 r, e = max(r1, r2), max(e1, e2)
+                note = ""
+                if name == "radiance_mlp_bwd" and d is not None:
+                    # K8b's tensor-core passes sum dW in a fixed order: a
+                    # second run gives the same bits
+                    same = all(bits_equal(x, y) for x, y in zip(a, fn(d, False)[0]))
+                    ok = ok and same
+                    note = f"; a second run bit-equal {same}"
                 print(f"check {name:23s} {dname:8s} max_abs_err {e:.3e}; worst err / tolerance "
-                      f"{r:.3e} {'ok' if r <= 1.0 else 'FAIL'}", flush=True)
+                      f"{r:.3e}{note} {'ok' if r <= 1.0 else 'FAIL'}", flush=True)
                 ok = ok and r <= 1.0
                 errs[name][dname] = e
                 del a, b, a_at_tol, b_at_tol
             bf = torch.bfloat16
             ms[name] = (cuda_ms(lambda: fn(bf, False)), cuda_ms(lambda: fn(bf, True), reps=3,
-                                                                 warmup=1))
+                                                                 warmup=1),
+                        device_ms(lambda: fn(bf, False), name.removesuffix("_codes")))
 
     # bounds at bf16: FLOP and bytes (each input read once, each output
     # written once) of this run's shapes
@@ -1141,9 +1165,9 @@ def radiance_kernel_checks(dev, results):
                                      + 2 * nbytes(*nws, *bs), H100_BF16_FLOPS),
     }
     for name in cases:
-        (b, by), (k, pl) = bounds[name], ms[name]
+        (b, by), (k, pl, dk) = bounds[name], ms[name]
         entry = {"max_abs_err": errs[name]["bfloat16"], "max_abs_err_f32": errs[name]["float32"],
-                 "ms": k, "plain_ms": pl, "bound_ms": b, "bound_by": by}
+                 "ms": k, "device_ms": dk, "plain_ms": pl, "bound_ms": b, "bound_by": by}
         if name.endswith("_codes"):  # K3 with the code operand: beside its code-free numbers
             results[name.removesuffix("_codes")].update(
                 {f"{k_}_codes": v for k_, v in entry.items()}, rows_codes=n, d0_codes=ws[0].shape[0])
@@ -1151,7 +1175,7 @@ def radiance_kernel_checks(dev, results):
             results[name] = {**entry, "library_ms": None, "rows": n,
                              "d0": d0n if name.startswith("radiance_mlp") else ws[0].shape[0]}
     print(f"radiance kernels (bf16, ms per launch): "
-          f"{json.dumps({k: {'ms': v[0], 'plain_ms': v[1], 'bound_ms': bounds[k][0]} for k, v in ms.items()})}",
+          f"{json.dumps({k: {'ms': v[0], 'device_ms': v[2], 'plain_ms': v[1], 'bound_ms': bounds[k][0]} for k, v in ms.items()})}",
           flush=True)
     torch.cuda.empty_cache()
     if not ok:
@@ -1449,12 +1473,12 @@ def _profile(fn, reps: int, what: str) -> dict:
         if not any(n in k for n in names):
             other[k[:60]] = other.get(k[:60], 0.0) + v
     # the tensor-core kernels' parts: K1's, K2f's (and its render chunk's
-    # CUDA-core kernel), K7f's, K3f's and K8a's bf16 kernels, K2b's, K7b's,
-    # K3b's and K8a's two passes and their sums
+    # CUDA-core kernel), K7f's, K3f's, K8a's and K8b's bf16 kernels, K2b's,
+    # K7b's, K3b's, K8a's and K8b's two passes and their sums
     parts = ("sdf_mlp_kernel_tc", "sdf_grad_kernel_tc", "sdf_grad_kernel_fma", "sdf_grad_grid_kernel_tc",
-             "radiance_norm_kernel_tc", "radiance_split_kernel_tc",
+             "radiance_norm_kernel_tc", "radiance_split_kernel_tc", "radiance_mlp_kernel_tc",
              *(f"{n}_kernel_{p}" for n in ("sdf_grad_bwd", "sdf_grad_grid_bwd", "radiance_norm_bwd",
-                                           "radiance_split_bwd")
+                                           "radiance_split_bwd", "radiance_mlp_bwd")
                for p in ("ct", "dw", "sums")))
     kern_parts = {n: sum(v for k, v in per_name.items() if n in k) for n in parts}
     return {"ms": ms, "device_busy_ms": busy, "busy_share": busy / ms, "kernels_ms": kern,

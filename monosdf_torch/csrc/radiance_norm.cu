@@ -51,7 +51,7 @@ radiance_norm_kernel(const __grid_constant__ RadIn in, int N, const __grid_const
                      const float* __restrict__ P, float* __restrict__ rgb_out,
                      float* __restrict__ nrm_out) {
   extern __shared__ __align__(16) float smem[];
-  rad_forward<false>(in, N, d, P, rgb_out, nrm_out, smem);
+  rad_forward(in, N, d, P, rgb_out, nrm_out, smem);
 }
 
 // bf16: the tensor cores (radiance_tc.cuh rb_trunk_forward)

@@ -44,7 +44,8 @@ radiance_norm_bwd_kernel(const __grid_constant__ RadIn in, const __grid_constant
                          const void* __restrict__ cn, float* __restrict__ dg_out,
                          float* __restrict__ work, int n_params) {
   extern __shared__ __align__(16) float smem[];
-  rad_backward<false>(in, o, N, d, P, PT, co, 0, cn, dg_out, work, n_params, smem);
+  rad_backward(in, o, N, d, P, PT, static_cast<const float*>(co),
+               static_cast<const float*>(cn), dg_out, work, n_params, smem);
 }
 
 // K3b's segments: [sv (no cotangent) | n (normalised from g) | feat (df at

@@ -50,7 +50,7 @@ __global__ void __launch_bounds__(THREADS)
 radiance_split_kernel(const __grid_constant__ RadIn in, int N, const __grid_constant__ MlpDesc d,
                       const float* __restrict__ P, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
-  rad_forward<false>(in, N, d, P, out, nullptr, smem);
+  rad_forward(in, N, d, P, out, nullptr, smem);
 }
 
 __global__ void __launch_bounds__(RB_THREADS, 1)

@@ -42,7 +42,7 @@ radiance_split_bwd_kernel(const __grid_constant__ RadIn in, const __grid_constan
                           const float* __restrict__ PT, const float* __restrict__ co,
                           float* __restrict__ work, int n_params) {
   extern __shared__ __align__(16) float smem[];
-  rad_backward<false>(in, o, N, d, P, PT, co, 1, nullptr, nullptr, work, n_params, smem);
+  rad_backward(in, o, N, d, P, PT, co, nullptr, nullptr, work, n_params, smem);
 }
 
 // K8a's segments: [sv (f32, no cotangent) | n (the raw gradient, f32; dn

@@ -12,10 +12,13 @@ linearisation, each corner's cotangent added to its table row atomically.
 
 Both are bound by bytes: the corner reads (the bf16 table fits the card's
 L2) and the float32 outputs. K6 runs one thread per active (point, level)
-pair and writes the inactive levels' zero columns apart; K5 one thread per
-(point, level), its atomics summing in a run-dependent order. A level's
-``idx % hms`` is a mask or a multiply-high in both (``level_mod`` below is
-its host twin, which the tests hold to ``%``).
+pair and writes the inactive levels' zero columns apart; K5 one warp per
+level of 32 consecutive points, summing the bf16-rounded terms of
+neighbouring lanes in one cell before one atomic (a float4 one where
+corners c and c|1 share a 16-byte row pair), its atomics summing in a
+run-dependent order. A level's ``idx % hms`` is a mask or a multiply-high
+in both (``level_mod`` below is its host twin, which the tests hold to
+``%``).
 
 ``encode_diff`` puts them under a ``torch.autograd.Function``: K6 with
 tangents forward, K5 backward, the gradient going to the float32 table

@@ -6,8 +6,7 @@ K8b's forward replaces ``monosdf_tpu/ops/pallas_rgb_grad.py _fwd_pallas``
 (:225); ``mlp_with_input_grad`` is the counterpart of the custom-VJP
 function there (:952-981), reached from ``fields.rendering_apply_pallas``
 in nerf mode on h0 = [view PE | features | code]. Kernels:
-``csrc/radiance_mlp.cu`` and ``csrc/radiance_mlp_bwd.cu``, both on the
-trunk of ``csrc/radiance.cuh``.
+``csrc/radiance_mlp.cu`` and ``csrc/radiance_mlp_bwd.cu``.
 
 Numerics, as the TPU kernel's: h0 (float32) rounded to the operand dtype
 at the product, each hidden pre-activation rounded to it before the bias
@@ -19,8 +18,15 @@ product; dh0 (N, d0) comes back in float32.
 
 Bound on the card: operations (about 2.8e10 FLOP forward per 100,352 rows
 at d0 = 283, the backward about three times that, against ~115 MB of
-float32 input and output). The kernels keep the input row and the hidden
-layers in shared memory and compute with float32 FMAs on the CUDA cores.
+float32 input and output). At bf16 both run on the tensor cores with K3's
+kernel bodies on one float32 segment, h0: the forward is K3f's
+(csrc/radiance_tc.cuh ``rb_trunk_forward``, B operands from
+``radiance_norm.pack_fwd``), the backward K3b's two passes
+(csrc/radiance_bwd_tc.cuh, ``radiance_norm.bwd_tc``) with every column of
+h0 a cotangent output (W0^T in blocks of at most 256 columns). float32
+runs the SIMT trunk of csrc/radiance.cuh, which K3 and K8a share (float32
+FMAs on the CUDA cores, the input row and the hidden layers in shared
+memory).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 
 from ..nn import matmul_rounded
 from . import build
+from .sdf_grad import _ints
 
 NAME = "radiance_mlp"
 BWD_NAME = "radiance_mlp_bwd"
@@ -132,19 +139,23 @@ def opt_ptr(t):
 
 def _lib():
     lib = build.load(NAME)
-    lib.radiance_mlp_launch.restype = ctypes.c_int
-    lib.radiance_mlp_launch.argtypes = [_c, ctypes.c_int, ctypes.c_int,
-                                        ctypes.POINTER(ctypes.c_int), _c, _c, ctypes.c_int, _c]
+    _i, _pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.radiance_mlp_launch.restype = _i
+    lib.radiance_mlp_launch.argtypes = [_c, _i, _i, _pi, _c, _c, _c]
+    lib.radiance_mlp_tc_launch.restype = _i
+    lib.radiance_mlp_tc_launch.argtypes = [_c, _i, _i, _pi, _c, _c, _pi, _c, _i, _c]
     return lib
 
 
 def _bwd_lib():
+    from .radiance_norm import bwd_tc_argtypes
+
     lib = build.load(BWD_NAME)
-    lib.radiance_mlp_bwd_launch.restype = ctypes.c_int
-    lib.radiance_mlp_bwd_launch.argtypes = [
-        _c, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), _c, _c, _c, _c, _c,
-        ctypes.c_int, ctypes.c_int, _c, ctypes.c_int, _c,
-    ]
+    _i, _pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.radiance_mlp_bwd_launch.restype = _i
+    lib.radiance_mlp_bwd_launch.argtypes = [_c, _i, _i, _pi, _c, _c, _c, _c, _c, _i, _i, _c, _c]
+    lib.radiance_mlp_bwd_tc_launch.restype = _i
+    lib.radiance_mlp_bwd_tc_launch.argtypes = bwd_tc_argtypes(2, (_c, _i, _i))  # co, dh0
     return lib
 
 
@@ -169,8 +180,18 @@ def _launch_forward(ws, bs, h0, dtype):
     if N == 0:
         return out
     lib = _lib()
-    err = lib.radiance_mlp_launch(build.ptr(h0), d0, N, desc, build.ptr(P), build.ptr(out),
-                                  int(dtype is not None), build.stream_ptr(dev))
+    if dtype is not None:  # the tensor cores
+        from .radiance_norm import FWD_MAX_HIDDEN, pack_fwd
+
+        if len(ws) - 1 > FWD_MAX_HIDDEN:
+            raise ValueError(f"{len(ws) - 1} hidden layers > {FWD_MAX_HIDDEN}")
+        wb, offs = pack_fwd(ws)
+        err = lib.radiance_mlp_tc_launch(build.ptr(h0), d0, N, desc, build.ptr(P), build.ptr(wb),
+                                         _ints(offs), build.ptr(out), build.num_sms(dev),
+                                         build.stream_ptr(dev))
+    else:
+        err = lib.radiance_mlp_launch(build.ptr(h0), d0, N, desc, build.ptr(P), build.ptr(out),
+                                      build.stream_ptr(dev))
     build.check(lib, NAME, err)
     build.launches[NAME] += 1
     return out
@@ -178,7 +199,8 @@ def _launch_forward(ws, bs, h0, dtype):
 
 def mlp_with_input_grad_bwd(ws, bs, h0, co, dtype=None):
     """K8b's backward: (dws, dbs, dh0 (N, d0) float32). A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel."""
+    the plain version; a CUDA tensor launches the kernel (bf16: the
+    tensor-core passes), which keeps at most two hidden layers."""
     if h0.device.type == "cpu":
         return mlp_bwd_plain(ws, bs, h0, co, dtype)
     return _launch_backward(ws, bs, h0, co, dtype)
@@ -189,20 +211,28 @@ def _launch_backward(ws, bs, h0, co, dtype):
     check_trunk(ws, d0, backward=True)
     co = co.float().contiguous()
     build.require(co, "co", torch.float32, (N, ws[-1].shape[1]), dev)
-    P, PT, desc = packed(ws, bs, dev, transposed=True)
-    out, work, grid = bwd_outputs(P, N, dev)
     dh0 = torch.empty(N, d0, dtype=torch.float32, device=dev)
-    if N > 0:
+    if N > 0 and dtype is not None:
+        from .radiance_norm import bwd_tc
+
+        P, desc = packed(ws, bs, dev)
+        lib = _bwd_lib()
+        out = bwd_tc(lib, BWD_NAME, lib.radiance_mlp_bwd_tc_launch, ws, P, desc, (h0, d0, N),
+                     (co, dh0), (d0,), (0,))
+        build.launches[BWD_NAME] += 1
+    elif N > 0:
+        P, PT, desc = packed(ws, bs, dev, transposed=True)
+        out, work, grid = bwd_outputs(P, N, dev)
         lib = _bwd_lib()
         err = lib.radiance_mlp_bwd_launch(
             build.ptr(h0), d0, N, desc, build.ptr(P), build.ptr(PT), build.ptr(co),
             build.ptr(dh0), build.ptr(work), grid, P.numel(), build.ptr(out),
-            int(dtype is not None), build.stream_ptr(dev),
+            build.stream_ptr(dev),
         )
         build.check(lib, BWD_NAME, err)
         build.launches[BWD_NAME] += 1
     else:
-        out.zero_()
+        out = torch.zeros(sum(t.numel() for t in (*ws, *bs)), dtype=torch.float32, device=dev)
     dws, dbs = build.unpack_mlp(out, ws, bs)
     return dws, dbs, dh0
 

@@ -144,14 +144,14 @@ FWD_MAX_HIDDEN = 8  # csrc/radiance_tc.cuh RF_MAX_HIDDEN
 
 
 def pack_fwd(ws):
-    """K3f's and K8a's bf16 B operands (csrc/radiance_tc.cuh): the
+    """K3f's, K8a's and K8b's bf16 B operands (csrc/radiance_tc.cuh): the
     hidden layers' W_l in ring order, ``BWD_KC`` rows a stage, as the first
     H operands of ``pack_bwd``; and each one's element offset."""
     return pack_wgmma_b(ws[:-1], BWD_KC)
 
 
 def pack_bwd(ws, widths, outputs):
-    """K3b's and K8a's pass-1 B operands (csrc/radiance_bwd_tc.cuh), in ring
+    """K3b's, K8a's and K8b's pass-1 B operands (csrc/radiance_bwd_tc.cuh), in ring
     order: the forward's W_l (l < H), the backward's W_l^T (l = H - 1 .. 1), then
     W0^T restricted to each input block's rows (``input_blocks``), each
     ``BWD_KC`` rows a ring stage. Returns (the bf16 buffer, offsets, depths
@@ -203,12 +203,18 @@ def _bwd_lib():
     return lib
 
 
-def bwd_tc_argtypes(n_cot: int):
+# the operands of K3b's and K8a's tensor-core entry points: (the normals'
+# operand, sv, ds, feat, F, code, C, N)
+SEGMENT_OPERANDS = (_c, _c, ctypes.c_int, _c, ctypes.c_int, _c, ctypes.c_int, ctypes.c_int)
+
+
+def bwd_tc_argtypes(n_cot: int, operands=SEGMENT_OPERANDS):
     """The argument types of a tensor-core backward's C entry point (K3b's,
-    K8a's): the operands, the packed B operands, ``n_cot`` cotangent
-    pointers (inputs, then outputs), the scratch and the partials."""
+    K8a's, K8b's): the operands (ending with N), the packed B operands,
+    ``n_cot`` cotangent pointers (inputs, then outputs), the scratch and
+    the partials."""
     _i, _pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    return [_c, _c, _i, _c, _i, _c, _i, _i, _pi, _c, _c, _pi, _pi, _i, _i, _c, *[_c] * n_cot,
+    return [*operands, _pi, _c, _c, _pi, _pi, _i, _i, _c, *[_c] * n_cot,
             ctypes.POINTER(_c), ctypes.POINTER(_c), _pi, _c, _i, _i, _c, _i, _i, _c, _c]
 
 
@@ -293,8 +299,10 @@ def _launch_backward(ws, bs, g, sv, feat, co, cn, dtype, code):
     if N > 0 and dtype is not None:
         P, desc = packed(ws, bs, dev)
         lib = _bwd_lib()
+        widths = (ds, 3, F, C)
         out = bwd_tc(lib, BWD_NAME, lib.radiance_norm_bwd_tc_launch, ws, P, desc,
-                     (g, sv, ds, feat, F, code, C, N), (co, cn, dg, df, dc))
+                     (g, sv, ds, feat, F, code, C, N), (co, cn, dg, df, dc), widths,
+                     tc_outputs(widths))
         build.launches[BWD_NAME] += 1
     elif N > 0:
         P, PT, desc = packed(ws, bs, dev, transposed=True)
@@ -314,23 +322,24 @@ def _launch_backward(ws, bs, g, sv, feat, co, cn, dtype, code):
     return dws, dbs, dg, df, dc
 
 
-def bwd_tc(lib, name, launch, ws, P, desc, operands, cotangents):
+def bwd_tc(lib, name, launch, ws, P, desc, operands, cotangents, widths, outputs):
     """The tensor-core passes (csrc/radiance_bwd_tc.cuh) through ``launch``,
-    the C entry point of K3b or K8a in ``lib``: pass 1 on one CTA per SM
-    over 64-row tiles, storing each tile's h0, Y_l (l < H - 1) and CT_l (l <
-    H) as 64-row blocks of wgmma's layout; pass 2 over the blocks'
+    the C entry point of K3b, K8a or K8b in ``lib``: pass 1 on one CTA per
+    SM over 64-row tiles, storing each tile's h0, Y_l (l < H - 1) and CT_l
+    (l < H) as 64-row blocks of wgmma's layout; pass 2 over the blocks'
     128-column slices and splits of the tiles; the ordered sums. operands:
-    (the normals' operand, sv, ds, feat, F, code, C, N), the input
-    segments (ds, 3, F, C wide), each but sv's with a cotangent output;
-    cotangents: the entry point's cotangent tensors in its order (None:
-    none). Returns the parameter gradients in ``build.pack_mlp``'s layout."""
+    the entry point's operands, N last (K3b's and K8a's: the normals'
+    operand, sv, ds, feat, F, code, C, N; K8b's: h0, d0, N); widths: the
+    input row's segment widths; outputs: the segments with a cotangent
+    output; cotangents: the entry point's cotangent tensors in its order
+    (None: none). Returns the parameter gradients in ``build.pack_mlp``'s
+    layout."""
     dev, N = P.device, operands[-1]
-    widths = (operands[2], 3, operands[4], operands[6])
     H = len(ws) - 1
     n_small = sum(w.shape[1] for w in ws) + ws[-1].shape[0] * ws[-1].shape[1]
     if n_small > BWD_SMALL:
         raise ValueError(f"{n_small} bias and top-layer gradients > {BWD_SMALL}")
-    wb, offs, ks, nblk, route = pack_bwd(ws, widths, tc_outputs(widths))
+    wb, offs, ks, nblk, route = pack_bwd(ws, widths, outputs)
     if len(offs) > BWD_MAX_MATS:
         raise ValueError(f"{len(offs)} B operands > {BWD_MAX_MATS}")
     n_tiles = -(-N // TILE_M)

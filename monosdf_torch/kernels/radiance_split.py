@@ -48,7 +48,7 @@ from .radiance_mlp import (
     packed,
     trunk_bwd_plain,
 )
-from .radiance_norm import FWD_MAX_HIDDEN, bwd_tc, bwd_tc_argtypes, pack_fwd
+from .radiance_norm import FWD_MAX_HIDDEN, bwd_tc, bwd_tc_argtypes, pack_fwd, tc_outputs
 from .sdf_grad import _ints
 
 NAME = "radiance_split"
@@ -182,8 +182,10 @@ def _launch_backward(ws, bs, normals, sv, feat, code, co, dtype):
     if N > 0 and dtype is not None:
         P, desc = packed(ws, bs, dev)
         lib = _bwd_lib()
+        widths = (ds, 3, F, C)
         out = bwd_tc(lib, BWD_NAME, lib.radiance_split_bwd_tc_launch, ws, P, desc,
-                     (normals, sv, ds, feat, F, code, C, N), (co, dn, df, dc))
+                     (normals, sv, ds, feat, F, code, C, N), (co, dn, df, dc), widths,
+                     tc_outputs(widths))
         build.launches[BWD_NAME] += 1
     elif N > 0:
         P, PT, desc = packed(ws, bs, dev, transposed=True)

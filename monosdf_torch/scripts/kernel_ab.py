@@ -16,7 +16,8 @@ per call and the host us per call. The inputs:
   random points of the scene box and at the points of one grid training
   step (its sweeps' and the differentiated encode's); K5's digest from
   single-point calls, so that no table row takes more than two atomic adds
-  and the sums do not depend on their order.
+  and the sums do not depend on their order; and at both point sets the
+  atomics K5 issues (``k5_atomics``), which depend on the points alone.
 """
 
 from __future__ import annotations
@@ -38,6 +39,40 @@ def digest(*ts) -> str:
     for t in ts:
         h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def k5_atomics(g, xs, size: float = 1.0) -> dict:
+    """K5's atomic operations on the points xs of the grid g: the in-box
+    points; the float2 atomics of one thread per (point, level), 8 a live
+    pair; the kernel's (csrc/hash_encode_bwd.cu): per level, runs of
+    neighbouring in-box points of one 32-point CTA in one base cell, whose
+    first point adds each corner pair (c, c|1) with one float4 atomic where
+    the two rows are an aligned pair, else two float2; and each level's
+    share of live points that lead a run."""
+    from monosdf_torch.ops.hashgrid import corner_geometry, level_rules
+
+    L = g.num_levels
+    idx, _, _, inb = corner_geometry(g, xs, size, L)
+    live = inb > 0
+    x01 = (xs + size) / (2.0 * size)
+    first = torch.zeros_like(live)
+    first[::32] = True
+    ops = float4 = 0
+    lead = []
+    for l, rule in enumerate(level_rules(g)):
+        res, fscale = float(rule[2]), float(rule[3])
+        cell = torch.clamp(torch.floor(x01 * np.float32(fscale)), 0.0, res)
+        same = torch.zeros_like(live)
+        same[1:] = (cell[1:] == cell[:-1]).all(-1) & live[1:] & live[:-1]
+        head = live & ~(same & ~first)
+        r = idx[:, l]
+        pair = torch.stack([(r[c] % 2 == 0) & (r[c + 1] == r[c] + 1) for c in (0, 2, 4, 6)]) & head
+        ops += 8 * int(head.sum()) - int(pair.sum())
+        float4 += int(pair.sum())
+        lead.append(round(float(head.sum()) / max(1, int(live.sum())), 4))
+    n = int(live.sum())
+    return {"points": xs.shape[0], "points_in_box": n, "atomics_per_pair": 8 * n * L,
+            "atomics": ops, "float4": float4, "run_leads_per_level": lead}
 
 
 def main(argv=None):
@@ -111,7 +146,7 @@ def main(argv=None):
             **{k: sum(p[k] for p in per) / len(per) for k in per[0]}}
         out.setdefault("hash_encode_bwd", {})[tag] = {
             "digest": digest(*(v for d in one for v in (d.nonzero().flatten(), d[d != 0]))),
-            **timing(bwd, "hash_encode_bwd")}
+            **timing(bwd, "hash_encode_bwd"), "atomics": k5_atomics(g, xs)}
     print(json.dumps(out))
 
 

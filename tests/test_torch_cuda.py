@@ -477,6 +477,51 @@ def test_k8a_tensor_cores_match_plain(dev, code_dim, n):
         "radiance_split": 2, "radiance_split_bwd": 2}
 
 
+# K8b's bf16 kernels on the tensor cores (the forward K3f's body, the
+# backward K3b's two passes, on one float32 segment, h0, every column with
+# a cotangent output): nerf mode's input row without and with a code (283,
+# 315), the widest the kernels take (336), and a narrow one (27: the view
+# PE alone); one and two hidden layers of 256, nout 3 and 4; 97 rows (two
+# tiles, the last ragged: 33 rows) and 16,901 (265 tiles, more than 2 per
+# SM, the last 5 rows)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [97, 16901])
+@pytest.mark.parametrize("nout", [3, 4])
+@pytest.mark.parametrize("hidden", [1, 2])
+@pytest.mark.parametrize("d0", [27, 283, 315, 336])
+def test_k8b_tensor_cores_match_plain(dev, d0, hidden, nout, n):
+    """K8b forward and backward against their plain versions at the bf16
+    bars (the output at TOL; dW, db and dh0 at GRAD_TOL), the rows whose
+    ReLU gates lie within float32 rounding of 0 with a zero cotangent; two
+    runs give the same bits; one launch of each kernel a call."""
+    from monosdf_torch.kernels import radiance_mlp as k8b
+
+    rng = np.random.default_rng(d0 + 10 * hidden + nout)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    sizes = (d0, *[256] * hidden, nout)
+    ws = [t(rng.normal(size=(a, b)) / np.sqrt(a)) for a, b in zip(sizes[:-1], sizes[1:])]
+    bs = [t(0.1 * rng.normal(size=b)) for b in sizes[1:]]
+    h0 = t(rng.normal(size=(n, d0)))
+    bf = torch.bfloat16
+    before = dict(build.launches)
+    with torch.no_grad():
+        co = _clear_gated_rows(t(rng.normal(size=(n, nout))), h0, ws, bs)
+        out = [k8b.mlp_with_input_grad(ws, bs, h0, bf) for _ in range(2)]
+        bwd = [k8b.mlp_with_input_grad_bwd(ws, bs, h0, co, bf) for _ in range(2)]
+        ref = k8b.mlp_plain(ws, bs, h0, bf)
+        p = k8b.mlp_bwd_plain(ws, bs, h0, co, bf)
+    torch.cuda.synchronize()
+    _check([out[0]], [ref], bf)
+    dws, dbs, dh0 = bwd[0]
+    assert dh0.dtype == torch.float32 and dh0.shape == (n, d0)
+    _check_grads([*dws, *dbs, dh0], [*p[0], *p[1], p[2]], bf)
+    assert torch.equal(_bits(out[0]), _bits(out[1]))
+    flat = [[*b[0], *b[1], b[2]] for b in bwd]
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(*flat))
+    assert {k: build.launches[k] - before[k] for k in ("radiance_mlp", "radiance_mlp_bwd")} == {
+        "radiance_mlp": 2, "radiance_mlp_bwd": 2}
+
+
 def _ordered_column_sums(co, ctas):
     """co's column sums (float32) in the tensor-core backward's order: each
     64-row tile's rows in order (zeros past N), a persistent CTA's tiles
@@ -697,6 +742,90 @@ def test_k6_matches_plain_over_levels_schemes_and_points(dev, levels, scheme, ta
     torch.cuda.synchronize()
     assert build.launches["hash_encode"] - before == 2 * 2 * 2 * len(
         {None, 1, min(3, L), L})
+
+
+def _k5_row_bar(cfg, x, cf, ct, tangent_scale, dtype_name):
+    """K5's row-by-row bar, 1e-6 + rtol * S, S each row's sum over its
+    corner terms of |c_feat| W + sum_k |c_tg_k| |dW/dx_k| (as
+    test_k6_k5_match_plain)."""
+    from monosdf_torch.ops.hashgrid import corner_geometry, corner_weights
+
+    N, L = x.shape[0], cfg.num_levels
+    idx, w, dw, inb = corner_geometry(cfg, x, 1.0, L, tangent_scale)
+    W, dW = corner_weights(w, dw)
+    mag = W[..., None] * (cf.abs() * inb[:, None]).reshape(N, L, 2).permute(1, 0, 2)[None]
+    if ct is not None:
+        mag = mag + torch.einsum("jcln,jlnd->clnd", dW.abs(),
+                                 (ct.abs() * inb[:, None]).reshape(3, N, L, 2).permute(0, 2, 1, 3))
+    s = torch.zeros(cfg.table_size, 2, device=x.device).index_add_(
+        0, idx.reshape(-1), mag.reshape(-1, 2)).reshape(-1)
+    return 1e-6 + (1e-4 if dtype_name == "float32" else 2**-7 + 1e-4) * s
+
+
+# K5 against its plain version over the level schedules of K6's test (1, 6
+# and 16 levels), both hash schemes and both table types, with and without
+# tangents: 40,007 points in and around the box (1,251 CTAs of 32 points,
+# more than the card has SMs; the last ragged, 7 points; a fifth outside,
+# which add nothing), ray-ordered points (7 rays x 143 samples) and 2,048
+# points in one cell of every level (every lane of every warp in one run,
+# the most contention). Row by row at the bar of chip_smoke.py
+# ENCODE_BWD_TOL.
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scheme", ["add", "xor"])
+@pytest.mark.parametrize("levels", ["1", "6", "16"])
+def test_k5_matches_plain_over_levels_schemes_and_points(dev, levels, scheme, table_dtype):
+    from monosdf_torch.kernels.hash_encode import hash_encode_bwd, hash_encode_bwd_plain
+    from monosdf_torch.ops.hashgrid import HashGridConfig
+
+    cfg = HashGridConfig(level_dim=2, hash_scheme=scheme, table_dtype=table_dtype,
+                         param_flat=True, **K6_CASES[levels])
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    corner = rng.uniform(-0.5, 0.5, 3)
+    points = {"box": t(rng.uniform(-1.25, 1.25, (40007, 3))),
+              "rays": t(_ray_points(rng, 7, 143)),
+              "one-cell": t(corner + rng.uniform(0.0, 1e-5, (2048, 3)))}
+    L = cfg.num_levels
+    before = build.launches["hash_encode_bwd"]
+    for name, x in points.items():
+        n = x.shape[0]
+        cf, ct = t(rng.normal(size=(n, 2 * L))), t(rng.normal(size=(3, n, 2 * L)))
+        for c_tg in (ct, None):
+            d = hash_encode_bwd(cfg, x, cf, c_tg, 1.0, 0.7)
+            dp = hash_encode_bwd_plain(cfg, x, cf, c_tg, 1.0, 0.7)
+            assert d.shape == dp.shape and torch.isfinite(d).all()
+            bar = _k5_row_bar(cfg, x, cf, c_tg, 0.7, table_dtype)
+            err = (d - dp).abs()
+            assert (err <= bar).all(), (name, c_tg is None, float((err / bar).max()))
+    torch.cuda.synchronize()
+    assert build.launches["hash_encode_bwd"] - before == 2 * len(points)
+
+
+@pytest.mark.cuda
+def test_k5_rounds_each_term_to_bf16_before_summing(dev):
+    """Three identical points on a bf16 table of one dense level: each of
+    their 8 corner rows gets exactly 3 bf16(t), t the corner's term, as
+    index_add_ of the rounded terms (the plain version) gives; the
+    cotangent is chosen so that bf16(3 t) differs from 3 bf16(t) on some
+    row, so a sum taken before the rounding would show."""
+    import dataclasses
+
+    from monosdf_torch.kernels.hash_encode import corner_terms, hash_encode_bwd, hash_encode_bwd_plain
+    from monosdf_torch.ops.hashgrid import HashGridConfig
+
+    cfg = HashGridConfig(level_dim=2, table_dtype="bfloat16", param_flat=True, **K6_CASES["1"])
+    x = torch.tensor([[0.123, -0.456, 0.789]] * 3, device=dev)
+    cf = torch.tensor([[1.0 + 2**-7 + 2**-9, -(1.0 + 2**-8 + 2**-10)]] * 3, device=dev)
+    d = hash_encode_bwd(cfg, x, cf, None, 1.0, 1.0)
+    dp = hash_encode_bwd_plain(cfg, x, cf, None, 1.0, 1.0)
+    rows, u = corner_terms(cfg, x[:1], cf[:1], None, 1.0, 1.0)  # one point's rounded terms
+    _, t = corner_terms(dataclasses.replace(cfg, table_dtype="float32"), x[:1], cf[:1], None)
+    assert len(set(rows.tolist())) == 8  # a dense level: 8 distinct rows
+    assert torch.equal(t.bfloat16().float(), u)
+    assert not torch.equal((3 * t).bfloat16().float(), 3 * u)
+    want = torch.zeros(cfg.table_size, 2, device=dev).index_put_((rows,), 3 * u).reshape(-1)
+    assert torch.equal(d, want) and torch.equal(dp, want)
 
 
 # 40,007 points: 1,251 32-point tiles of the bf16 K7f (with Z: the tensor

@@ -400,6 +400,39 @@ def test_k8a_tensor_core_packers_read_back(way, d0):
     assert set(seen) == {(s << 16) | c for s in outputs for c in range(widths[s])}
 
 
+@pytest.mark.parametrize("d0", [283, 315], ids=["no-code", "code"])
+def test_k8b_tensor_core_packers_read_back(d0):
+    """K8b's bf16 B operands for nerf mode's one-segment input row, [view
+    PE(4) | 256 features] (283 wide) and with a 32-wide code (315): its
+    input blocks (``input_blocks((d0,), (0,))``) cover each of the d0
+    columns exactly once in two blocks of at most 256, the route tables
+    name them, and ``pack_bwd``'s W0^T blocks read back through the mirror
+    of the kernels' addressing as W0's rows; the forward's operands
+    (``pack_fwd``) are ``pack_bwd``'s first two."""
+    from monosdf_torch.kernels.radiance_norm import BWD_KC, input_blocks, pack_bwd, pack_fwd
+
+    ws = [torch.from_numpy(_f32(k, n, seed=k)) for k, n in ((d0, 256), (256, 256), (256, 3))]
+    blocks = input_blocks((d0,), (0,))
+    cols = [c for runs, _ in blocks for a, b in runs for c in range(a, b)]
+    assert len(blocks) == 2 and all(len(codes) <= k1.WG_N for _, codes in blocks)
+    assert sorted(cols) == list(range(d0)) and [c for _, codes in blocks for c in codes] == cols
+    wb, offs, ks, nblk, route = pack_bwd(ws, (d0,), (0,))
+    wf, offs_f = pack_fwd(ws)
+    assert offs[:2] == offs_f and torch.equal(wf, wb[:wf.numel()])
+    assert nblk == 2 and len(offs) == 5 and route.shape == (2, k1.WG_N)
+    assert torch.equal(_mirror_read(wb, offs[0], d0, 256, BWD_KC), ws[0].bfloat16().float())
+    seen = []
+    for b in range(nblk):
+        codes = [int(v) for v in route[b] if v >= 0]
+        assert all(v < 0 for v in route[b, len(codes):])
+        seen += codes
+        rows = ws[0][codes].t()  # segment 0: a code is the column itself
+        assert ks[3 + b] == rows.shape[0] == 256
+        assert torch.equal(_mirror_read(wb, offs[3 + b], 256, len(codes), BWD_KC),
+                           rows.bfloat16().float()), b
+    assert sorted(seen) == list(range(d0))
+
+
 @pytest.mark.parametrize("code_dim", [0, 8], ids=["no-code", "code"])
 def test_k8a_wrapper_takes_plain_on_cpu_in_bf16(code_dim):
     """On a CPU tensor K8a's wrappers take the plain versions in bf16, as in
