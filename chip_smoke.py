@@ -14,7 +14,7 @@ through K3 and through K8a. Phases (any failure exits non-zero):
    for sm_90a, one nvcc per source, all at once (twenty kernels: K1-PE is
    K1's library on raw points, counted on its own); count the HGMMA
    (wgmma) instructions in the SASS of the tensor-core kernels' libraries
-   (cuobjdump), failing on none;
+   and the bulk copies (UBLKCP) in R's (cuobjdump), failing on none;
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, and time kernel and plain version (CUDA events):
    the forwards at the shapes of one 1024-ray render chunk of the bench's
@@ -78,7 +78,10 @@ through K3 and through K8a. Phases (any failure exits non-zero):
    G, S, R, M, C, each launched 6 times per case), then each kept output
    against its kernel's plain version on the same inputs, and each kernel
    again on seeded random inputs of the same shapes (the probe's own values
-   are constant); times, rates, bounds and library calls;
+   are constant); times, rates, bounds and library calls, and for R and S
+   each call's device time (torch.profiler; and with the calls queued back
+   to back) and host time, and R's copy floor (its rows' bytes at 3.35
+   TB/s);
 11. print a ``render``, a ``train``, a ``render_pe``, a ``train_pe``, a
    ``render_grids``, a ``train_grids``,
    a ``render_codes``, a ``train_codes``, a ``render_codes_split``, a
@@ -258,11 +261,51 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 def device_ms(fn, kernel: str, reps: int = 10) -> float:
     """Device ms per call of fn spent in ``kernel`` (a name of
-    build.SOURCES), from _profile; fails where it recorded none."""
-    ms = _profile(fn, reps, kernel)["kernels_ms"].get(kernel, 0.0)
-    if ms <= 0:
-        fail(f"torch.profiler recorded no device time for {kernel}")
-    return ms
+    build.SOURCES): one torch.profiler session over 3 ``reps`` calls, each
+    device function of the kernel (each runs once a launch) at the mean
+    duration of its recorded events, times the kernel's launches per call.
+    The profiler drops device events, at a session's start or all of them
+    where it places the device's clock off the host's, so a session's sum
+    over its calls can read short (``scripts/kernel_ab.py
+    --profiler_check``); fails where it recorded none of the kernel's."""
+    from monosdf_torch.kernels import build
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        before = dict(build.launches)
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3 * reps):
+                fn()
+            torch.cuda.synchronize()
+        per_call = (build.launches[kernel] - before[kernel]) / (3 * reps)
+        durations: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and _of(kernel, e.name):
+                durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if durations and per_call > 0:
+            return per_call * sum(sum(d) / len(d) for d in durations.values()) / 1e3
+        print(f"device_ms: torch.profiler recorded no device event of {kernel} in "
+              f"{3 * reps} calls; profiling again", flush=True)
+    fail(f"torch.profiler recorded no device time for {kernel}")
+
+
+def queued_ms(fn, calls: int = 20) -> float:
+    """Device ms per call of fn with the calls queued behind a sleep kernel,
+    so that they run back to back without host gaps (CUDA events around
+    them: the call's device work and the device's gaps between launches;
+    a reading beside the profiler's)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # ~10 ms of device clock cycles
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def host_us(fn, calls: int = 100) -> float:
@@ -369,19 +412,19 @@ def launch_counts() -> dict:
     return {**build.launches, **build.reference_launches}
 
 
-def hgmma_counts() -> dict:
-    """The HGMMA instructions in the SASS of each tensor-core library
-    (cuobjdump beside nvcc)."""
+def sass_counts(libs, opcode: str) -> dict:
+    """The instructions of ``opcode`` in the SASS of each library of
+    ``libs`` (cuobjdump beside nvcc)."""
     from pathlib import Path
 
     from monosdf_torch.kernels import build
 
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     counts = {}
-    for name in TENSOR_CORE_LIBS:
+    for name in libs:
         sass = subprocess.run([str(tool), "-sass", str(build.lib_path(name))], check=True,
                               capture_output=True, text=True).stdout
-        counts[name] = sum("HGMMA" in line for line in sass.splitlines())
+        counts[name] = sum(opcode in line for line in sass.splitlines())
     return counts
 
 
@@ -1437,40 +1480,66 @@ def train_phase(dev, which: str = "mlp"):
     return info, (model, cfg, step, batches[0], gen)
 
 
+# the device functions of a kernel where they are not named <kernel>_kernel*
+# (R's sum_partials_kernel: the second launch of its earlier two-launch
+# form, for the profiles of an older checkout's kernels); reduce_partials:
+# the second launch of the float32 backward kernels, counted on its own
+DEVICE_NAMES = {
+    "reduce_partials": ("reduce_partials",),
+    "probe_gather": ("gather_l2_kernel", "gather_smem_kernel", "gather_ax1_kernel"),
+    "probe_scatter_rows": ("scatter_rows_",),
+    "probe_row_copy": ("row_copy_kernel", "sum_partials_kernel"),
+    "probe_strided_permute": ("strided_permute_kernel",),
+    "probe_capacity": ("capacity_kernel",),
+}
+
+
+def _of(kernel: str, name: str) -> bool:
+    """Whether the device function ``name`` belongs to ``kernel`` (a name of
+    build.SOURCES, or reduce_partials)."""
+    return any(p in name for p in DEVICE_NAMES.get(kernel, (f"{kernel}_kernel",)))
+
+
 def _profile(fn, reps: int, what: str) -> dict:
-    """Device time per kernel over ``reps`` calls of fn (torch.profiler), the
-    wall time per call by CUDA events, and the device's busy share."""
+    """Device time per kernel over ``reps`` calls of fn (torch.profiler,
+    the session's sums; ``device_ms`` reads one kernel robustly), the
+    kernels' device events and launches counted meanwhile, the wall time
+    per call by CUDA events, and the device's busy share."""
     from monosdf_torch.kernels import build
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / reps
-    # the device's own events only: an operator's entry repeats the time of
-    # the kernels it launched
-    per_name = {e.key: e.self_device_time_total / 1e3 / reps  # from us
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA}
-    busy = sum(per_name.values())
-    if busy <= 0:
+    for _ in range(3):  # again where the session recorded no device event
+        before = dict(build.launches)
+        with torch.profiler.profile(activities=acts) as prof:
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+        # the device's own events only: an operator's entry repeats the time
+        # of the kernels it launched
+        dev_events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        per_name = {e.key: e.self_device_time_total / 1e3 / reps for e in dev_events}  # from us
+        busy = sum(per_name.values())
+        if busy > 0:
+            break
+    else:
         fail(f"torch.profiler recorded no device time ({what})")
-    # reduce_partials: the second launch of the float32 backward kernels
-    # (their blocks' dW partials summed), counted on its own; the bf16
-    # backward passes (*_kernel_ct, *_kernel_dw, *_kernel_sums) count under
-    # their kernel
-    names = [f"{n}_kernel" for n in build.SOURCES if n not in PROBE_SITES] + ["reduce_partials"]
-    kern = {n.removesuffix("_kernel"): sum(v for k, v in per_name.items() if n in k)
-            for n in names}
+    ms = start.elapsed_time(end) / reps
+    launched = {k: v - before[k] for k, v in build.launches.items() if v != before[k]}
+    count = {e.key: e.count for e in dev_events}
+    # the bf16 backward passes (*_kernel_ct, *_kernel_dw, *_kernel_sums)
+    # count under their kernel
+    groups = (*build.SOURCES, "reduce_partials")
+    kern = {n: sum(v for k, v in per_name.items() if _of(n, k)) for n in groups}
+    events = {n: sum(c for k, c in count.items() if _of(n, k)) for n in groups}
     other: dict = {}  # by the first 60 characters of the kernel's name
     for k, v in per_name.items():
-        if not any(n in k for n in names):
+        if not any(_of(n, k) for n in groups):
             other[k[:60]] = other.get(k[:60], 0.0) + v
     # the tensor-core kernels' parts: K1's, K2f's (and its render chunk's
     # CUDA-core kernel), K7f's, K3f's, K8a's and K8b's bf16 kernels, K2b's,
@@ -1482,6 +1551,8 @@ def _profile(fn, reps: int, what: str) -> dict:
                for p in ("ct", "dw", "sums")))
     kern_parts = {n: sum(v for k, v in per_name.items() if n in k) for n in parts}
     return {"ms": ms, "device_busy_ms": busy, "busy_share": busy / ms, "kernels_ms": kern,
+            "kernel_events": {n: c for n, c in events.items() if c},
+            "launches": launched,
             "tensor_core_parts_ms": kern_parts,
             "other_ms": busy - sum(kern.values()),
             "other_top_ms": dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])}
@@ -1695,6 +1766,12 @@ def _probe_bound(kernel: str, inputs: dict, out):
     return bound_ms(0.0, nbytes(out), H100_F32_FLOPS)
 
 
+def row_copy_floor_ms(inputs: dict) -> float:
+    """R's copy floor: the 512-byte rows it copies whole, each once, at
+    3.35 TB/s (its bound_ms counts only the sectors of their first values)."""
+    return inputs["idx"].numel() * 512 / H100_BYTES * 1e3
+
+
 def _probe_library(kernel: str, inputs: dict):
     """The one PyTorch call that computes the case's function (G: one of its
     reps' gathers; R: the row pick and its sum; M: one einsum over the
@@ -1724,7 +1801,9 @@ def probes_phase(dev, results):
     at full size on PROBE_CASES, launches counted from 0 and checked exactly
     (LAUNCHES_PER_CASE per case), each kept output against its plain
     version, each kernel again on random inputs of the case's shapes; per
-    case ms (per launch), the probe's rate, bound, plain and library times.
+    case ms (per launch), the probe's rate, bound, plain and library times;
+    for R and S the device ms (profiled, queued) and host us of a call, for
+    R its copy floor.
     Fills results[kernel] for the kernels line; returns the probes line."""
     from monosdf_torch.kernels import build, probes
     from monosdf_torch.scripts import probe_hash_primitives as probe
@@ -1771,15 +1850,24 @@ def probes_phase(dev, results):
             "plain_ms": cuda_ms(lambda: plain(**inputs), reps=3, warmup=1),
             "library_ms": cuda_ms(_probe_library(kernel, inputs), reps=5),
             "max_abs_err": max(err, err_r), "err_over_tolerance": max(ratio, ratio_r)}
+        if kernel in ("probe_row_copy", "probe_scatter_rows"):  # a call's device / host split
+            call = lambda: wrap(**inputs)
+            cases[case].update(device_ms=device_ms(call, kernel, reps=5),
+                               queued_ms=queued_ms(call), host_us=host_us(call))
+        if kernel == "probe_row_copy":
+            cases[case]["copy_floor_ms"] = row_copy_floor_ms(inputs)
     lim = probes.device_limits(dev)
-    print(f"probe cases (ms per launch): {json.dumps({c: {kk: v[kk] for kk in ('ms', 'bound_ms', 'plain_ms', 'library_ms')} for c, v in cases.items()})}",
+    shown = ("ms", "device_ms", "queued_ms", "host_us", "bound_ms", "copy_floor_ms", "plain_ms", "library_ms")
+    print(f"probe cases (ms per launch): {json.dumps({c: {kk: v[kk] for kk in shown if kk in v} for c, v in cases.items()})}",
           flush=True)
     for kernel, case in PROBE_PRIMARY.items():
         c = cases[case]
         results[kernel] = {
             "case": case, "replaces_sites": PROBE_SITES[kernel],
             "max_abs_err": max(v["max_abs_err"] for v in cases.values() if v["kernel"] == kernel),
-            **{kk: c[kk] for kk in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{kk: c[kk] for kk in ("ms", "device_ms", "queued_ms", "host_us", "plain_ms",
+                                    "bound_ms", "bound_by", "copy_floor_ms", "library_ms")
+               if kk in c},
             "cases": [n for n, v in cases.items() if v["kernel"] == kernel]}
     torch.cuda.empty_cache()
     if not ok:
@@ -1810,10 +1898,15 @@ def main(argv):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"ptxas {name}: {line.strip()}")
-    hgmma = hgmma_counts()
+    hgmma = sass_counts(TENSOR_CORE_LIBS, "HGMMA")
     print(f"HGMMA instructions in SASS: {json.dumps(hgmma)}", flush=True)
     if not all(hgmma.values()):
         fail(f"a tensor-core library has no HGMMA in its SASS: {hgmma}")
+    # R copies each row by its own bulk copy (cp.async.bulk: UBLKCP)
+    bulk = sass_counts(("probe_row_copy",), "UBLKCP")
+    print(f"UBLKCP instructions in SASS: {json.dumps(bulk)}", flush=True)
+    if not all(bulk.values()):
+        fail(f"R's library has no bulk copy (UBLKCP) in its SASS: {bulk}")
 
     cfg = bench_mlp_config("bfloat16")
     model = perturbed_model(cfg, dev)
@@ -1828,6 +1921,7 @@ def main(argv):
             results[name]["sass_hgmma"] = hgmma[build.SOURCE_OF[name]]
     if "--kernels" in argv:
         probes_phase(dev, results)
+        results["probe_row_copy"]["sass_ublkcp"] = bulk["probe_row_copy"]
         print(json.dumps(results))
         return
     # the main paths, each render and each set of timed steps counted from 0
@@ -1845,6 +1939,7 @@ def main(argv):
         torch.cuda.empty_cache()
     lines["nerf_radiance"] = nerf_phase(dev)
     lines["probes"] = probes_phase(dev, results)
+    results["probe_row_copy"]["sass_ublkcp"] = bulk["probe_row_copy"]
 
     kernels = []
     for name in build.KERNELS:

@@ -124,7 +124,11 @@ def check(lib: ctypes.CDLL, name: str, err: int):
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` as a pointer, from PyTorch's
+    raw getter (``torch.cuda.current_stream(device).cuda_stream`` builds a
+    Stream object first: host time in every wrapper call)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

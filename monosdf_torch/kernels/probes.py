@@ -10,11 +10,15 @@ with these five:
   table, summed in float32; the table staged in shared memory where it fits
   one block's, else read through L2.
 - **S** (``scatter_rows``, ``csrc/probe_scatter_rows.cu``; :192 and :534):
-  runs of R rows added at their row offsets into a zeroed (rows, 128)
-  float32 accumulator, float4 atomics.
+  runs of R rows added at their row offsets into a (rows, 128) float32
+  accumulator: for offsets the caller says are sorted, one output-stationary
+  launch (each row sums the runs that cover it, in run order, and is written
+  once; descending offsets trap); else a memset and float4 atomics, each
+  warp summing consecutive value rows with the same target first.
 - **R** (``row_copy_sum``, ``csrc/probe_row_copy.cu``; :901): the sum of
   ``tab[idx_i, 0]``, each 512-byte row copied into shared memory by its own
-  bulk copy, a ring of 8 per CTA.
+  bulk copy, a ring of ``stages`` per CTA with every thread issuing its own
+  copies, the CTAs' partials added by the last CTA in the same launch.
 - **M** (``strided_permute``, ``csrc/probe_strided_permute.cu``; :936): the
   sum over beta of ``x[beta::8][:n] @ P``, the product in the kernel.
 - **C** (``capacity``, ``csrc/probe_capacity.cu``; :495 and :853): a
@@ -23,12 +27,14 @@ with these five:
 
 Each wrapper runs the plain version (``*_plain``) for a CPU tensor and
 launches its kernel for a CUDA tensor, counting the launch in
-``build.launches``; a refused launch raises.
+``build.launches``; a refused launch raises. The C signatures are set once
+per process.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,10 +50,12 @@ _c = ctypes.c_void_p
 _i = ctypes.c_int
 
 
-def _lib(name: str, fn: str, argtypes):
+@functools.cache
+def _lib(name: str, fn: str, argtypes: tuple):
+    """The loaded library and its launch function ``fn``, signature set."""
     lib = build.load(name)
     f = getattr(lib, fn)
-    f.restype, f.argtypes = ctypes.c_int, argtypes
+    f.restype, f.argtypes = ctypes.c_int, list(argtypes)
     return lib, f
 
 
@@ -80,8 +88,8 @@ def gather(tbl, idx, axis: int = 0, reps: int = 1, where: list | None = None):
     build.require(idx, "idx", torch.int32, (n, LANES), dev)
     out = torch.empty(n, LANES, dtype=torch.float32, device=dev)
     staged = ctypes.c_int(0)
-    lib, f = _lib(GATHER, "probe_gather_launch", [_c, _c, _i, _i, _i, _i, _i, _c,
-                                                   ctypes.POINTER(ctypes.c_int), _c])
+    lib, f = _lib(GATHER, "probe_gather_launch", (_c, _c, _i, _i, _i, _i, _i, _c,
+                                                   ctypes.POINTER(ctypes.c_int), _c))
     err = f(build.ptr(tbl), build.ptr(idx), rows, n, axis, reps, int(tbl.dtype == torch.bfloat16),
             build.ptr(out), ctypes.byref(staged), build.stream_ptr(dev))
     build.check(lib, GATHER, err)
@@ -99,29 +107,42 @@ def run_rows(offs, run: int):
     return (offs.long()[:, None] + torch.arange(run, device=offs.device)).reshape(-1)
 
 
-def scatter_rows_plain(offs, vals, rows: int, run: int = 1):
-    """S's function in plain PyTorch: value rows added in order."""
+def scatter_rows_plain(offs, vals, rows: int, run: int = 1, sorted_offs: bool = False):
+    """S's function in plain PyTorch: value rows added in order (any order
+    of offsets; ``sorted_offs`` only picks the kernel's pass)."""
     out = torch.zeros(rows, LANES, dtype=torch.float32, device=vals.device)
     return out.index_add_(0, run_rows(offs, run), vals.float())
 
 
-def scatter_rows(offs, vals, rows: int, run: int = 1):
+# value rows a warp of the atomic pass walks: of 8-256, 32 ran P4's
+# all-conflict case fastest on an H100, its random case at any span up to
+# 128 alike (``scripts/kernel_ab.py --probes --sweep``)
+SCATTER_SPAN = 32
+_SCATTER_ARGS = (_c, _c, _i, _i, _i, _i, _i, _i, _c, _c)
+
+
+def scatter_rows(offs, vals, rows: int, run: int = 1, sorted_offs: bool = False,
+                 span: int = SCATTER_SPAN):
     """(rows, 128) float32: zeros, then vals[run j + k] (float32 or bf16,
     widened) added into row offs[j] + k for every run j and k < run;
-    offs (n_runs,) int32 in [0, rows - run], vals (run n_runs, 128)."""
+    offs (n_runs,) int32 in [0, rows - run], vals (run n_runs, 128). With
+    ``sorted_offs`` the caller says offs is nondecreasing: the card then
+    runs the output-stationary pass (the sums in run order; descending
+    offsets end the launch with an error, raised at the next sync); else
+    the atomic pass over spans of ``span`` value rows."""
     if vals.device.type == "cpu":
-        return scatter_rows_plain(offs, vals, rows, run)
+        return scatter_rows_plain(offs, vals, rows, run, sorted_offs)
     dev, n = vals.device, offs.shape[0]
     if vals.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"vals: dtype {vals.dtype}, expected float32 or bfloat16")
-    if run < 1 or rows < run:
-        raise ValueError(f"run {run} for {rows} rows")
+    if run < 1 or rows < run or span < 1:
+        raise ValueError(f"run {run} for {rows} rows, span {span}")
     build.require(offs, "offs", torch.int32, (n,), dev)
     build.require(vals, "vals", vals.dtype, (run * n, LANES), dev)
     out = torch.empty(rows, LANES, dtype=torch.float32, device=dev)
-    lib, f = _lib(SCATTER, "probe_scatter_rows_launch", [_c, _c, _i, _i, _i, _i, _c, _c])
-    err = f(build.ptr(offs), build.ptr(vals), n, run, rows, int(vals.dtype == torch.bfloat16),
-            build.ptr(out), build.stream_ptr(dev))
+    lib, f = _lib(SCATTER, "probe_scatter_rows_launch", _SCATTER_ARGS)
+    err = f(offs.data_ptr(), vals.data_ptr(), n, run, rows, int(vals.dtype == torch.bfloat16),
+            int(sorted_offs), span, out.data_ptr(), build.stream_ptr(dev))
     build.check(lib, SCATTER, err)
     build.launches[SCATTER] += 1
     return out
@@ -130,27 +151,52 @@ def scatter_rows(offs, vals, rows: int, run: int = 1):
 # -- R ----------------------------------------------------------------------
 
 
-def row_copy_sum_plain(tab, idx, ctas: int = 1):
-    """R's function in plain PyTorch: the sum of tab[idx_i, 0] (float32)."""
-    return tab[idx.long(), 0].sum().reshape(1, 1)
+def row_copy_sum_plain(tab, idx, ctas: int = 1, stages=None):
+    """R's function in plain PyTorch: the sum of tab[idx_i, 0] (float32),
+    indices clamped into the table as the kernel clamps them."""
+    return tab[idx.long().clamp(0, tab.shape[0] - 1), 0].sum().reshape(1, 1)
 
 
-def row_copy_sum(tab, idx, ctas: int = 1):
+def row_copy_stages(ctas: int) -> int:
+    """R's ring depth (slots of one row per CTA), the fastest of 32-384 on an
+    H100 (``scripts/kernel_ab.py --probes --sweep``): one CTA 256 slots
+    (its SM's copies reach their rate there), one CTA per SM or more 128
+    each (64 KB; 8.6 MB in flight over 132 SMs)."""
+    return 256 if ctas == 1 else 128
+
+
+_row_copy_ws: dict = {}  # device -> R's workspace: its completion counter and the partials
+_ROW_COPY_ARGS = (_c, _i, _c, _i, _i, _i, _c, _c, _c)
+
+
+def _row_copy_workspace(dev, ctas: int):
+    ws = _row_copy_ws.get(dev)
+    if ws is None or ws.numel() < 32 + ctas:
+        ws = _row_copy_ws[dev] = torch.zeros(32 + max(ctas, 1024), dtype=torch.int32, device=dev)
+    return ws
+
+
+def row_copy_sum(tab, idx, ctas: int = 1, stages=None):
     """(1, 1) float32: sum_i tab[idx_i, 0], tab (rows, 128) float32, idx (n,)
     int32; on the card each row copied whole by its own bulk copy, ``ctas``
-    CTAs each over a contiguous slice of idx, their partials added in
-    order."""
+    CTAs each over a contiguous slice of idx with a ring of ``stages`` slots
+    (a multiple of 32 up to 384; default ``row_copy_stages``), the sums
+    added in a fixed order. Calls on one device share a workspace, so they
+    run on one stream at a time."""
     if tab.device.type == "cpu":
-        return row_copy_sum_plain(tab, idx, ctas)
+        return row_copy_sum_plain(tab, idx, ctas, stages)
     dev, rows, n = tab.device, tab.shape[0], idx.shape[0]
     build.require(tab, "tab", torch.float32, (rows, LANES), dev)
     build.require(idx, "idx", torch.int32, (n,), dev)
     if not 1 <= ctas <= max(n, 1):
         raise ValueError(f"ctas {ctas} for {n} rows")
-    partials = torch.empty(ctas, dtype=torch.float32, device=dev)
+    stages = row_copy_stages(ctas) if stages is None else stages
+    if stages % 32 or not 32 <= stages <= 384:
+        raise ValueError(f"stages {stages}: a multiple of 32 from 32 to 384")
+    ws = _row_copy_workspace(dev, ctas)
     out = torch.empty(1, 1, dtype=torch.float32, device=dev)
-    lib, f = _lib(ROW_COPY, "probe_row_copy_launch", [_c, _i, _c, _i, _i, _c, _c, _c])
-    err = f(build.ptr(tab), rows, build.ptr(idx), n, ctas, build.ptr(partials), build.ptr(out),
+    lib, f = _lib(ROW_COPY, "probe_row_copy_launch", _ROW_COPY_ARGS)
+    err = f(tab.data_ptr(), rows, idx.data_ptr(), n, ctas, stages, ws.data_ptr(), out.data_ptr(),
             build.stream_ptr(dev))
     build.check(lib, ROW_COPY, err)
     build.launches[ROW_COPY] += 1
@@ -189,7 +235,7 @@ def strided_permute(x, P, n_out: int = 1024):
     build.require(x, "x", torch.float32, (x.shape[0], LANES), dev)
     build.require(P, "P", torch.float32, (LANES, LANES), dev)
     out = torch.empty(n_out, LANES, dtype=torch.float32, device=dev)
-    lib, f = _lib(PERMUTE, "probe_strided_permute_launch", [_c, _c, _i, _c, _c])
+    lib, f = _lib(PERMUTE, "probe_strided_permute_launch", (_c, _c, _i, _c, _c))
     err = f(build.ptr(x), build.ptr(P), n_out, build.ptr(out), build.stream_ptr(dev))
     build.check(lib, PERMUTE, err)
     build.launches[PERMUTE] += 1
@@ -224,7 +270,7 @@ def capacity(rows: int, device):
         return capacity_plain(rows, device)
     out = torch.empty(rows, LANES, dtype=torch.float32, device=device)
     where = ctypes.c_int(0)
-    lib, f = _lib(CAPACITY, "probe_capacity_launch", [_c, _i, ctypes.POINTER(ctypes.c_int), _c])
+    lib, f = _lib(CAPACITY, "probe_capacity_launch", (_c, _i, ctypes.POINTER(ctypes.c_int), _c))
     err = f(build.ptr(out), rows, ctypes.byref(where), build.stream_ptr(device))
     if err:
         stage = "cudaFuncSetAttribute" if where.value == 1 else "launch"
@@ -236,7 +282,7 @@ def capacity(rows: int, device):
 
 def device_limits(device) -> dict:
     """The card's on-chip capacities that compare with VMEM, in bytes."""
-    lib, f = _lib(CAPACITY, "probe_device_limits", [ctypes.POINTER(ctypes.c_int)])
+    lib, f = _lib(CAPACITY, "probe_device_limits", (ctypes.POINTER(ctypes.c_int),))
     vals = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
         build.check(lib, CAPACITY, f(vals))

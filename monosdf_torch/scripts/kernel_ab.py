@@ -18,6 +18,21 @@ per call and the host us per call. The inputs:
   single-point calls, so that no table row takes more than two atomic adds
   and the sums do not depend on their order; and at both point sets the
   atomics K5 issues (``k5_atomics``), which depend on the points alone.
+
+``--probes`` times R (the per-row bulk copy) and S (the run scatter)
+instead, at the smoke's probe cases (``PROBE_CASES``: inputs from the
+checkout's own probe waves, seeded random values in place of the probe's
+constant ones): a digest and whether a second call gives the same bits,
+the error against the plain version over the smoke's bar, wall, device
+(the kernel's, by the profiler; all of the call's device work with the
+calls queued back to back, ``queued_ms``) and host time per call,
+the library call's time, the bound and, for R, the copy floor.
+``--probes --sweep`` also times R over its ring depths and S's atomic
+pass over its span lengths (``stages``, ``span``: keywords this
+checkout's wrappers take) at the same inputs: wall, device and queued ms.
+``--profiler_check N`` adds N readings of K5's device ms at the grid
+step's points both ways: the sum over one profiler session (with its
+recorded events and launches) and ``device_ms``.
 """
 
 from __future__ import annotations
@@ -75,10 +90,64 @@ def k5_atomics(g, xs, size: float = 1.0) -> dict:
             "atomics": ops, "float4": float4, "run_leads_per_level": lead}
 
 
+SWEEP = {"probe_row_copy": ("stages", (32, 64, 128, 256, 384)),
+         "probe_scatter_rows": ("span", (8, 16, 32, 64, 128, 256))}
+
+
+def probes_ab(cs, dev, reps: int, sweep: bool = False) -> dict:
+    """R and S at the smoke's probe cases (see the module's docstring)."""
+    from monosdf_torch.scripts import probe_hash_primitives as probe
+
+    cases = {c: kw for c, (kw, _) in cs.PROBE_CASES.items()
+             if kw in ("probe_row_copy", "probe_scatter_rows")}
+    keep: dict = {}
+    for w in sorted({cs.PROBE_CASES[c][1] for c in cases}):
+        probe.WAVES[w](dev, only=tuple(c for c in cases if cs.PROBE_CASES[c][1] == w), keep=keep)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 7)
+    fns, out = cs._probe_fns(), {}
+    for case, kernel in cases.items():
+        wrap, plain = fns[kernel]
+        inputs = cs._random_like(kernel, keep[case]["inputs"], gen)
+        fn = lambda: wrap(**inputs)
+        first, second = fn(), fn()
+        err, ratio = cs._probe_err(kernel, inputs, first, plain(**inputs))
+        entry = {"kernel": kernel, "digest": digest(first),
+                 "rerun_bit_equal": cs.bits_equal(first, second), "max_abs_err": err,
+                 "err_over_tolerance": ratio, "ms": cs.cuda_ms(fn, reps),
+                 "device_ms": cs.device_ms(fn, kernel, reps), "queued_ms": cs.queued_ms(fn),
+                 "host_us": cs.host_us(fn),
+                 "library_ms": cs.cuda_ms(cs._probe_library(kernel, inputs), reps),
+                 "bound_ms": cs._probe_bound(kernel, inputs, first)[0]}
+        if kernel == "probe_row_copy":
+            entry["copy_floor_ms"] = cs.row_copy_floor_ms(inputs)
+        if sweep and not inputs.get("sorted_offs"):
+            key, values = SWEEP[kernel]
+            at = lambda v: lambda: wrap(**inputs, **{key: v})
+            entry["sweep"] = {v: (cs.cuda_ms(at(v), reps), cs.device_ms(at(v), kernel, reps),
+                                  cs.queued_ms(at(v)))
+                              for v in values}
+        out[case] = entry
+    return out
+
+
+def profiler_check(cs, fn, kernel: str, n: int, reps: int) -> dict:
+    """n readings of the kernel's device ms a call of fn both ways: the sum
+    over one profiler session of ``reps`` calls (``_profile``), with its
+    recorded events and launches, and ``device_ms`` (the mean of the
+    recorded events' durations times the launches a call)."""
+    sums = [cs._profile(fn, reps, kernel) for _ in range(n)]
+    return {"session_sums": [(round(p["kernels_ms"][kernel], 5), p["kernel_events"].get(kernel, 0),
+                              p["launches"].get(kernel, 0)) for p in sums],
+            "device_ms": [round(cs.device_ms(fn, kernel, reps), 5) for _ in range(n)]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=None)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--probes", action="store_true", help="time R and S only")
+    ap.add_argument("--sweep", action="store_true", help="with --probes: R's rings, S's spans")
+    ap.add_argument("--profiler_check", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -94,6 +163,10 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"root": root, "card": torch.cuda.get_device_name(0)}
+    if args.probes:
+        out["probes"] = probes_ab(cs, dev, args.reps, args.sweep)
+        print(json.dumps(out))
+        return
     timing = lambda fn, kernel: {"ms": cs.cuda_ms(fn, args.reps),
                                  "device_ms": cs.device_ms(fn, kernel, args.reps),
                                  "host_us": cs.host_us(fn)}
@@ -147,6 +220,9 @@ def main(argv=None):
         out.setdefault("hash_encode_bwd", {})[tag] = {
             "digest": digest(*(v for d in one for v in (d.nonzero().flatten(), d[d != 0]))),
             **timing(bwd, "hash_encode_bwd"), "atomics": k5_atomics(g, xs)}
+        if args.profiler_check and tag == "step":
+            out["hash_encode_bwd"][tag]["profiler_check"] = profiler_check(
+                cs, bwd, "hash_encode_bwd", args.profiler_check, 10)
     print(json.dumps(out))
 
 

@@ -255,7 +255,8 @@ def wave1(device=None, only=(), keep=None, *, T=T, N_GATHER=N_GATHER, N_SCATTER=
         offs = torch.sort(p.randint(0, store_rows - 8, (store_runs,)))[0]
         vals = p.full((8 * store_runs, 128), 1.0)
         ms, rate = p.kernel_case("pl_dynslice_store_512x8rows", probes.scatter_rows,
-                                 dict(offs=offs, vals=vals, rows=store_rows, run=8),
+                                 dict(offs=offs, vals=vals, rows=store_rows, run=8,
+                                      sorted_offs=True),
                                  per=(store_runs, "ns/run"))
         p.report("pl_dynslice_store_512x8rows", ms, f"{rate:.1f} ns/run")
 
@@ -656,10 +657,10 @@ def wave7(device=None, only=(), keep=None, *, T=T, N_FOLD=N_FOLD, N_Q=4_194_304,
         tab = p.full((T // 8, 128), 0.5)
         ridx = p.randint(0, T // 8, (dma_rows,))
         sms = build.num_sms(p.device) if p.cuda else 1
-        for name, ctas, what in (("perrow_dma_64k", 1, "one CTA, a ring of 8 bulk copies"),
-                                 ("perrow_dma_64k_per_sm", sms,
-                                  f"{sms} CTAs (one per SM), a ring of 8 each")):
+        for name, ctas, what in (("perrow_dma_64k", 1, "one CTA"),
+                                 ("perrow_dma_64k_per_sm", sms, f"{sms} CTAs (one per SM)")):
             if p.want("perrow_dma", name):
+                what += f", a ring of {probes.row_copy_stages(ctas)} bulk copies each"
                 ms, rate = p.kernel_case(name, probes.row_copy_sum,
                                          dict(tab=tab, idx=ridx, ctas=ctas),
                                          per=(dma_rows, "ns/row"))

@@ -11,6 +11,10 @@ grid trunk on its 71-wide input) and a few hundred points; the full-width
 shapes are chip_smoke.py's.
 """
 
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1092,3 +1096,119 @@ def test_probe_strided_permute_and_capacity_match_plain(dev):
     assert _launched(before) == {}
     lim = probes.device_limits(dev)
     assert lim["sharedMemPerBlockOptin"] >= 227 * 1024 and lim["l2CacheSize"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctas,n,stages", [
+    (1, 1000, None), (1, 4097, 32), (7, 1000, None), (7, 7, None), (132, 65_536, None),
+    (132, 4097, 384), (264, 65_536, None), (264, 264, 64)])
+def test_probe_row_copy_over_ctas_rings_and_slices(dev, ctas, n, stages):
+    """R over CTA counts (more CTAs than SMs too), ring depths, slices that
+    are no multiple of the ring and one row a CTA: repeated indices and
+    indices outside the table (clamped) within 1e-5 of the sum of the
+    magnitudes; one launch a call; a second call bit-equal (the completion
+    counter is back at 0)."""
+    from monosdf_torch.kernels import probes
+
+    gen = torch.Generator(device=dev).manual_seed(n + ctas)
+    rows = 5000
+    tab = torch.randn(rows, 128, generator=gen, device=dev)
+    idx = torch.randint(-50, rows + 50, (n,), generator=gen, device=dev, dtype=torch.int32)
+    idx[: n // 4] = idx[n // 4: 2 * (n // 4)]  # repeats
+    before = dict(build.launches)
+    out = probes.row_copy_sum(tab, idx, ctas, stages)
+    again = probes.row_copy_sum(tab, idx, ctas, stages)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"probe_row_copy": 2} and out.shape == (1, 1)
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    mag = tab[idx.long().clamp(0, rows - 1), 0].abs().sum()
+    assert float((out - probes.row_copy_sum_plain(tab, idx)).abs()) <= 1e-5 * float(mag)
+
+
+def _sorted_offs(dev, n, rows, run, gen):
+    """n nondecreasing offsets in [0, rows - run] with ties and gaps, the
+    first at 0 and the last at rows - run."""
+    offs = torch.randint(0, rows - run + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+    offs = torch.sort(offs)[0]
+    if n >= 4:
+        offs[0], offs[-1] = 0, rows - run
+        offs[1] = offs[2]  # a tie
+    return offs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rows,run,dtype", [
+    (512, 4096, 8, torch.float32), (512, 4096, 8, torch.bfloat16), (300, 1003, 1, torch.float32),
+    (40, 1003, 8, torch.float32), (3000, 1003, 8, torch.bfloat16), (0, 64, 8, torch.float32)])
+def test_probe_scatter_rows_sorted_pass(dev, n, rows, run, dtype):
+    """S's output-stationary pass on sorted runs (ties, gaps, offsets at 0
+    and rows - run, a ragged last block, no runs at all): one launch, the
+    plain version's bits on the CPU (the same adds in run order), rows no
+    run reaches exactly 0, and a second call bit-equal."""
+    from monosdf_torch.kernels import probes
+
+    gen = torch.Generator(device=dev).manual_seed(n + rows + run)
+    offs = _sorted_offs(dev, n, rows, run, gen)
+    vals = torch.randn(run * n, 128, generator=gen, device=dev).to(dtype)
+    before = dict(build.launches)
+    out = probes.scatter_rows(offs, vals, rows, run, sorted_offs=True)
+    again = probes.scatter_rows(offs, vals, rows, run, sorted_offs=True)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"probe_scatter_rows": 2}
+    ref = probes.scatter_rows_plain(offs.cpu(), vals.cpu(), rows, run)
+    assert torch.equal(out.cpu(), ref) and torch.equal(out, again)
+    reached = torch.zeros(rows, dtype=torch.bool)
+    reached[probes.run_rows(offs.cpu(), run)] = True
+    assert bool((out.cpu()[~reached] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rows,run,dtype,conflict,span", [
+    (100_352, 65_536, 1, torch.float32, False, None), (100_352, 65_536, 1, torch.bfloat16, True, None),
+    (100_352, 65_536, 1, torch.float32, True, 7), (5000, 4096, 8, torch.bfloat16, False, 1),
+    (5000, 64, 8, torch.float32, False, 1000), (0, 64, 1, torch.float32, False, None)])
+def test_probe_scatter_rows_atomic_pass(dev, n, rows, run, dtype, conflict, span):
+    """S's atomic pass on offsets in any order, all-conflict ones (every
+    value row into row 0) and some outside [0, rows - run] (which add
+    nothing), over span lengths: one launch, per entry within 1e-5 of the
+    sum of the magnitudes of its terms."""
+    from monosdf_torch.kernels import probes
+
+    gen = torch.Generator(device=dev).manual_seed(n + rows + run)
+    offs = torch.randint(0, rows - run + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+    if conflict:
+        offs.zero_()
+    elif n:
+        offs[::97] = -1
+        offs[5::97] = rows - run + 1
+    vals = torch.randn(run * n, 128, generator=gen, device=dev).to(dtype)
+    kw = {} if span is None else {"span": span}
+    before = dict(build.launches)
+    out = probes.scatter_rows(offs, vals, rows, run, **kw)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"probe_scatter_rows": 1}
+    keep = (offs >= 0) & (offs <= rows - run)
+    vals_in = vals.view(n, run, 128)[keep].reshape(-1, 128)
+    ref = probes.scatter_rows_plain(offs[keep], vals_in, rows, run)
+    mag = probes.scatter_rows_plain(offs[keep], vals_in.abs(), rows, run)
+    assert bool(((out - ref).abs() <= 1e-5 * mag).all())
+
+
+@pytest.mark.cuda
+def test_probe_scatter_rows_sorted_pass_fails_on_unsorted_offsets(dev):
+    """Descending offsets given to the sorted pass end its launch with an
+    error at the next sync (in a child process: the trap ends the CUDA
+    context), never with a result."""
+    child = (
+        "import sys, torch\n"
+        f"sys.path.insert(0, {str(Path(__file__).resolve().parent.parent)!r})\n"
+        "from monosdf_torch.kernels import probes\n"
+        "offs = torch.tensor([0, 9, 4, 12], dtype=torch.int32, device='cuda')\n"
+        "vals = torch.ones(32, 128, device='cuda')\n"
+        "out = probes.scatter_rows(offs, vals, 64, 8, sorted_offs=True)\n"
+        "torch.cuda.synchronize()\n"
+        "print('SILENT', float(out.sum()))\n")
+    child_run = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True,
+                                timeout=300)
+    assert child_run.returncode != 0 and "SILENT" not in child_run.stdout
+    assert "CUDA" in child_run.stderr or "cuda" in child_run.stderr, child_run.stderr[-2000:]

@@ -193,6 +193,29 @@ def test_p4_rmw_scatter_matches_s(dt, conflict):
     _assert_sums_close(out_t, out_j, mag)
 
 
+def test_s_and_r_pass_keywords_on_the_cpu(capsys):
+    """The keywords that pick S's pass and R's ring change nothing on the
+    CPU, where the plain versions run; the probe's P2 case says its offsets
+    are sorted (they are), its P4 cases do not."""
+    rng = np.random.default_rng(13)
+    offs = _t(np.sort(rng.integers(0, 56, 12)).astype(np.int32))
+    vals = _t(rng.normal(size=(96, 128)).astype(np.float32))
+    ref = probes.scatter_rows_plain(offs, vals, 64, 8)
+    for kw in ({}, {"sorted_offs": True}, {"sorted_offs": False, "span": 3}):
+        assert torch.equal(probes.scatter_rows(offs, vals, 64, 8, **kw), ref)
+    tab, idx = _t(rng.normal(size=(32, 128)).astype(np.float32)), _t(np.arange(32, dtype=np.int32))
+    assert torch.equal(probes.row_copy_sum(tab, idx, 4, stages=64), probes.row_copy_sum_plain(tab, idx))
+    assert probes.row_copy_stages(1) % 32 == 0 and probes.row_copy_stages(132) % 32 == 0
+    keep = {}
+    probe.wave1("cpu", only=("pl_dynslice_store_512x8rows",), keep=keep, store_runs=4,
+                store_rows=64)
+    probe.wave4("cpu", only=("pl_rmw_100k_conflict",), keep=keep, rmw=RMW[-1:])
+    capsys.readouterr()
+    p2 = keep["pl_dynslice_store_512x8rows"]["inputs"]
+    assert p2["sorted_offs"] is True and bool((p2["offs"][1:] >= p2["offs"][:-1]).all())
+    assert "sorted_offs" not in keep["pl_rmw_100k_conflict"]["inputs"]
+
+
 # -- C: P3 (:495) and P5 (:853) -------------------------------------------------
 
 @pytest.mark.parametrize("site", [495, 853])
