@@ -13,8 +13,9 @@ through K3 and through K8a. Phases (any failure exits non-zero):
 2. build the kernels' nineteen libraries from monosdf_torch/csrc with nvcc
    for sm_90a, one nvcc per source, all at once (twenty kernels: K1-PE is
    K1's library on raw points, counted on its own); count the HGMMA
-   (wgmma) instructions in the SASS of the tensor-core kernels' libraries
-   and the bulk copies (UBLKCP) in R's (cuobjdump), failing on none;
+   (wgmma) instructions in the SASS of the tensor-core kernels' libraries,
+   the bulk copies (UBLKCP) in R's and the bulk stores (UBLKCP.G.S) in
+   C's (cuobjdump), failing on none;
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, and time kernel and plain version (CUDA events):
    the forwards at the shapes of one 1024-ray render chunk of the bench's
@@ -78,10 +79,11 @@ through K3 and through K8a. Phases (any failure exits non-zero):
    G, S, R, M, C, each launched 6 times per case), then each kept output
    against its kernel's plain version on the same inputs, and each kernel
    again on seeded random inputs of the same shapes (the probe's own values
-   are constant); times, rates, bounds and library calls, and for R and S
-   each call's device time (torch.profiler; and with the calls queued back
-   to back) and host time, and R's copy floor (its rows' bytes at 3.35
-   TB/s);
+   are constant); times, rates, bounds and library calls, and for G, S, R
+   and C each call's device time (torch.profiler; and with the calls
+   queued back to back) and host time, R's copy floor (its rows' bytes at
+   3.35 TB/s) and G's shared-memory floor (its reps' reads at 32 a clock
+   on each SM);
 11. print a ``render``, a ``train``, a ``render_pe``, a ``train_pe``, a
    ``render_grids``, a ``train_grids``,
    a ``render_codes``, a ``train_codes``, a ``render_codes_split``, a
@@ -110,6 +112,9 @@ H100_BYTES = 3.35e12      # HBM3 bytes/s
 # programming guide, compute capability 9.0) x 132 SMs x the 1.98 GHz boost
 # clock the data sheet's float32 peak assumes
 H100_SFU_OPS = 16 * 132 * 1.98e9
+# shared-memory reads (4 bytes each, no bank conflict) per second: 32 banks
+# per SM per clock x 132 SMs x 1.98 GHz
+H100_SMEM_READS = 32 * 132 * 1.98e9
 SEED = 0
 CHUNK = 1024
 
@@ -267,17 +272,22 @@ def device_ms(fn, kernel: str, reps: int = 10) -> float:
     The profiler drops device events, at a session's start or all of them
     where it places the device's clock off the host's, so a session's sum
     over its calls can read short (``scripts/kernel_ab.py
-    --profiler_check``); fails where it recorded none of the kernel's."""
+    --profiler_check``); a short session late in a long run lost all of
+    them, so the calls run between two sleep kernels of ~5 ms each inside
+    the session (twice that at each retry), away from its edges. Fails
+    where it recorded none of the kernel's."""
     from monosdf_torch.kernels import build
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(3):
         before = dict(build.launches)
         with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(10_000_000 << attempt)  # device clock cycles
             for _ in range(3 * reps):
                 fn()
+            torch.cuda._sleep(10_000_000 << attempt)
             torch.cuda.synchronize()
         per_call = (build.launches[kernel] - before[kernel]) / (3 * reps)
         durations: dict = {}
@@ -1482,11 +1492,13 @@ def train_phase(dev, which: str = "mlp"):
 
 # the device functions of a kernel where they are not named <kernel>_kernel*
 # (R's sum_partials_kernel: the second launch of its earlier two-launch
-# form, for the profiles of an older checkout's kernels); reduce_partials:
+# form, and G's gather_smem_kernel, its earlier whole-table staging, for
+# the profiles of an older checkout's kernels); reduce_partials:
 # the second launch of the float32 backward kernels, counted on its own
 DEVICE_NAMES = {
     "reduce_partials": ("reduce_partials",),
-    "probe_gather": ("gather_l2_kernel", "gather_smem_kernel", "gather_ax1_kernel"),
+    "probe_gather": ("gather_l2_kernel", "gather_slice_kernel", "gather_smem_kernel",
+                     "gather_ax1_kernel"),
     "probe_scatter_rows": ("scatter_rows_",),
     "probe_row_copy": ("row_copy_kernel", "sum_partials_kernel"),
     "probe_strided_permute": ("strided_permute_kernel",),
@@ -1663,7 +1675,7 @@ def nerf_phase(dev):
 # scripts/probe_hash_primitives.py at its full size -> (kernel, wave)
 PROBE_CASES = {
     "pl_dyngather_ax0_8x128": ("probe_gather", 1),            # P1, axis 0, staged in shared memory
-    "pl_dyngather_ax0_8192x128": ("probe_gather", 1),         # P1, axis 0, through L2
+    "pl_dyngather_ax0_8192x128": ("probe_gather", 1),         # P1, axis 0, column slices staged
     "pl_dyngather_ax1_512x128": ("probe_gather", 1),          # P1, axis 1
     "pl_dynslice_store_512x8rows": ("probe_scatter_rows", 1),  # P2
     "smem_alloc_227KB": ("probe_capacity", 4),                 # P3 (P5: the same kernel)
@@ -1672,7 +1684,7 @@ PROBE_CASES = {
     "perrow_dma_64k": ("probe_row_copy", 7),                   # P6, one CTA
     "perrow_dma_64k_per_sm": ("probe_row_copy", 7),            # P6, one CTA per SM
     "strided_permute_kernel": ("probe_strided_permute", 7),    # P7
-    "dg_32768r_2048n_bfloat16": ("probe_gather", 8),           # P8
+    "dg_32768r_2048n_bfloat16": ("probe_gather", 8),           # P8, through L2
 }
 # the case whose numbers stand in the kernels line
 PROBE_PRIMARY = {"probe_gather": "pl_dyngather_ax0_8192x128",
@@ -1685,6 +1697,8 @@ PROBE_PRIMARY = {"probe_gather": "pl_dyngather_ax0_8192x128",
 # sums of the same terms in another order (the atomics' order changes from
 # run to run); G, M (0/1 permutation) and C exactly
 PROBE_SUM_RTOL = 1e-5
+# the probe kernels whose calls phase 10 splits into device and host time
+SPLIT_KERNELS = ("probe_gather", "probe_scatter_rows", "probe_row_copy", "probe_capacity")
 
 
 def _probe_fns():
@@ -1766,6 +1780,13 @@ def _probe_bound(kernel: str, inputs: dict, out):
     return bound_ms(0.0, nbytes(out), H100_F32_FLOPS)
 
 
+def smem_floor_ms(inputs: dict) -> float:
+    """G's shared-memory floor: its reps' reads, reps n 128, each one bank
+    access, at 32 a clock on 132 SMs (its bound_ms counts the function's
+    bytes, not the reads of the implementation)."""
+    return inputs["reps"] * inputs["idx"].numel() / H100_SMEM_READS * 1e3
+
+
 def row_copy_floor_ms(inputs: dict) -> float:
     """R's copy floor: the 512-byte rows it copies whole, each once, at
     3.35 TB/s (its bound_ms counts only the sectors of their first values)."""
@@ -1802,8 +1823,8 @@ def probes_phase(dev, results):
     (LAUNCHES_PER_CASE per case), each kept output against its plain
     version, each kernel again on random inputs of the case's shapes; per
     case ms (per launch), the probe's rate, bound, plain and library times;
-    for R and S the device ms (profiled, queued) and host us of a call, for
-    R its copy floor.
+    for G, S, R and C the device ms (profiled, queued) and host us of a
+    call, for R its copy floor, for G its shared-memory floor.
     Fills results[kernel] for the kernels line; returns the probes line."""
     from monosdf_torch.kernels import build, probes
     from monosdf_torch.scripts import probe_hash_primitives as probe
@@ -1850,14 +1871,17 @@ def probes_phase(dev, results):
             "plain_ms": cuda_ms(lambda: plain(**inputs), reps=3, warmup=1),
             "library_ms": cuda_ms(_probe_library(kernel, inputs), reps=5),
             "max_abs_err": max(err, err_r), "err_over_tolerance": max(ratio, ratio_r)}
-        if kernel in ("probe_row_copy", "probe_scatter_rows"):  # a call's device / host split
+        if kernel in SPLIT_KERNELS:  # a call's device / host split
             call = lambda: wrap(**inputs)
             cases[case].update(device_ms=device_ms(call, kernel, reps=5),
                                queued_ms=queued_ms(call), host_us=host_us(call))
         if kernel == "probe_row_copy":
             cases[case]["copy_floor_ms"] = row_copy_floor_ms(inputs)
+        if kernel == "probe_gather":
+            cases[case]["smem_floor_ms"] = smem_floor_ms(inputs)
     lim = probes.device_limits(dev)
-    shown = ("ms", "device_ms", "queued_ms", "host_us", "bound_ms", "copy_floor_ms", "plain_ms", "library_ms")
+    shown = ("ms", "device_ms", "queued_ms", "host_us", "bound_ms", "copy_floor_ms",
+             "smem_floor_ms", "plain_ms", "library_ms")
     print(f"probe cases (ms per launch): {json.dumps({c: {kk: v[kk] for kk in shown if kk in v} for c, v in cases.items()})}",
           flush=True)
     for kernel, case in PROBE_PRIMARY.items():
@@ -1866,7 +1890,8 @@ def probes_phase(dev, results):
             "case": case, "replaces_sites": PROBE_SITES[kernel],
             "max_abs_err": max(v["max_abs_err"] for v in cases.values() if v["kernel"] == kernel),
             **{kk: c[kk] for kk in ("ms", "device_ms", "queued_ms", "host_us", "plain_ms",
-                                    "bound_ms", "bound_by", "copy_floor_ms", "library_ms")
+                                    "bound_ms", "bound_by", "copy_floor_ms", "smem_floor_ms",
+                                    "library_ms")
                if kk in c},
             "cases": [n for n, v in cases.items() if v["kernel"] == kernel]}
     torch.cuda.empty_cache()
@@ -1907,6 +1932,11 @@ def main(argv):
     print(f"UBLKCP instructions in SASS: {json.dumps(bulk)}", flush=True)
     if not all(bulk.values()):
         fail(f"R's library has no bulk copy (UBLKCP) in its SASS: {bulk}")
+    # C writes its output by bulk stores (cp.async.bulk.global.shared::cta: UBLKCP.G.S)
+    bulk_store = sass_counts(("probe_capacity",), "UBLKCP.G.S")
+    print(f"UBLKCP.G.S instructions in SASS: {json.dumps(bulk_store)}", flush=True)
+    if not all(bulk_store.values()):
+        fail(f"C's library has no bulk store (UBLKCP.G.S) in its SASS: {bulk_store}")
 
     cfg = bench_mlp_config("bfloat16")
     model = perturbed_model(cfg, dev)
@@ -1922,6 +1952,7 @@ def main(argv):
     if "--kernels" in argv:
         probes_phase(dev, results)
         results["probe_row_copy"]["sass_ublkcp"] = bulk["probe_row_copy"]
+        results["probe_capacity"]["sass_ublkcp_g_s"] = bulk_store["probe_capacity"]
         print(json.dumps(results))
         return
     # the main paths, each render and each set of timed steps counted from 0
@@ -1940,6 +1971,7 @@ def main(argv):
     lines["nerf_radiance"] = nerf_phase(dev)
     lines["probes"] = probes_phase(dev, results)
     results["probe_row_copy"]["sass_ublkcp"] = bulk["probe_row_copy"]
+    results["probe_capacity"]["sass_ublkcp_g_s"] = bulk_store["probe_capacity"]
 
     kernels = []
     for name in build.KERNELS:

@@ -7,8 +7,10 @@ with these five:
 
 - **G** (``gather``, ``csrc/probe_gather.cu``; :154 and :998): ``reps``
   dynamic gathers along axis 0 or 1 of a (rows, 128) float32 or bf16
-  table, summed in float32; the table staged in shared memory where it fits
-  one block's, else read through L2.
+  table, summed in float32; along axis 0 each CTA stages a slice of the
+  table's columns, every row, in shared memory where each element is read
+  more than once on average and a one-column slice fits one block's
+  (``gather_plan``), else the reps read through L2.
 - **S** (``scatter_rows``, ``csrc/probe_scatter_rows.cu``; :192 and :534):
   runs of R rows added at their row offsets into a (rows, 128) float32
   accumulator: for offsets the caller says are sorted, one output-stationary
@@ -23,7 +25,8 @@ with these five:
   sum over beta of ``x[beta::8][:n] @ P``, the product in the kernel.
 - **C** (``capacity``, ``csrc/probe_capacity.cu``; :495 and :853): a
   (rows, 128) output held whole in one CTA's shared memory, zeros with
-  ``[0, 0] = 1``; a size above the card's per-block maximum is refused.
+  ``[0, 0] = 1``, written out by bulk stores; a size above the card's
+  per-block maximum is refused.
 
 Each wrapper runs the plain version (``*_plain``) for a CPU tensor and
 launches its kernel for a CUDA tensor, counting the launch in
@@ -64,19 +67,69 @@ def _lib(name: str, fn: str, argtypes: tuple):
 
 def gather_plain(tbl, idx, axis: int = 0, reps: int = 1):
     """G's function in plain PyTorch: ``reps`` float32 adds of
-    take_along_axis(tbl, idx, axis), in order."""
-    g = torch.take_along_dim(tbl, idx.long(), dim=axis).float()
+    take_along_axis(tbl, idx, axis), in order, indices clamped into the
+    table as the kernel clamps them."""
+    g = torch.take_along_dim(tbl, idx.long().clamp(0, tbl.shape[axis] - 1), dim=axis).float()
     acc = torch.zeros_like(g)
     for _ in range(reps):
         acc = acc + g
     return acc
 
 
-def gather(tbl, idx, axis: int = 0, reps: int = 1, where: list | None = None):
+# csrc/probe_gather.cu's CTA shapes: SLICE_THREADS threads a staged column
+# slice, AX1_ROWS rows a CTA along axis 1, L2_THREADS a CTA through L2
+SLICE_THREADS = 512
+AX1_ROWS = 4
+L2_THREADS = 256
+_GATHER_ARGS = (_c, _c, _i, _i, _i, _i, _i, _i, _i, _c, _c)
+
+
+@functools.cache
+def gather_limits(index: int) -> tuple:
+    """What ``gather_plan`` needs of card ``index``: (sharedMemPerBlockOptin,
+    multiProcessorCount, sharedMemPerMultiprocessor,
+    maxThreadsPerMultiProcessor), queried once."""
+    lib, f = _lib(GATHER, "probe_gather_limits", (_c,))
+    vals = (ctypes.c_int * 4)()
+    with torch.cuda.device(index):
+        build.check(lib, GATHER, f(vals))
+    return tuple(vals)
+
+
+@functools.lru_cache(maxsize=1024)
+def gather_plan(rows: int, n: int, axis: int, reps: int, elem_bytes: int, limits: tuple,
+                width: int | None = None) -> tuple:
+    """G's launch on a card with ``limits`` (``gather_limits``): (where,
+    w, blocks, grid). Axis 1 stages AX1_ROWS rows a CTA. Axis 0 stages
+    column slices w wide, the table's every row, where each table element
+    is read more than once on average (reps n >= rows) and a one-column
+    slice fits one block's shared memory; w is the widest power of two of
+    at most 32 bytes a row that fits (``width`` forces a width, and
+    staging), and each slice's n output rows go to ``blocks`` CTAs: as
+    many as fill the SMs at the CTAs an SM holds, no more than give each
+    CTA SLICE_THREADS outputs. Otherwise the reps read through L2 (w 0)."""
+    if axis == 1:
+        return "shared", 0, 0, -(-rows // AX1_ROWS)
+    optin, sms, smem_sm, threads_sm = limits
+    if width is None:
+        if reps * n < rows or rows * elem_bytes > optin:
+            return "l2", 0, 0, -(-n * LANES // L2_THREADS)
+        width = 32 // elem_bytes
+        while rows * width * elem_bytes > optin:
+            width //= 2
+    slices = -(-LANES // width)
+    fit = max(1, min(threads_sm // SLICE_THREADS, smem_sm // (rows * width * elem_bytes + 1024)))
+    blocks = max(1, min(sms * fit // slices, -(-n * width // SLICE_THREADS)))
+    return "shared", width, blocks, slices * blocks
+
+
+def gather(tbl, idx, axis: int = 0, reps: int = 1, where: list | None = None,
+           width: int | None = None):
     """(n, 128) float32: ``reps`` gathers of tbl (rows, 128) float32 or
-    bf16 at idx (n, 128) int32 along ``axis`` (axis 1: n == rows), summed.
-    On the card ``where``, if given, gets "shared" or "l2": where the
-    kernel read the table."""
+    bf16 at idx (n, 128) int32 along ``axis`` (axis 1: n == rows), summed;
+    indices clamped into the table. On the card ``where``, if given, gets
+    "shared" or "l2": where the kernel read the table (``gather_plan``;
+    ``width``, axis 0 only: stage column slices that wide)."""
     if tbl.device.type == "cpu":
         return gather_plain(tbl, idx, axis, reps)
     dev, rows, n = tbl.device, tbl.shape[0], idx.shape[0]
@@ -84,18 +137,21 @@ def gather(tbl, idx, axis: int = 0, reps: int = 1, where: list | None = None):
         raise ValueError(f"tbl: dtype {tbl.dtype}, expected float32 or bfloat16")
     if axis not in (0, 1) or (axis == 1 and n != rows):
         raise ValueError(f"axis {axis} with {n} index rows for {rows} table rows")
+    if width is not None and (axis != 0 or not 1 <= width <= LANES):
+        raise ValueError(f"width {width}: 1 to {LANES} columns, axis 0 only")
     build.require(tbl, "tbl", tbl.dtype, (rows, LANES), dev)
     build.require(idx, "idx", torch.int32, (n, LANES), dev)
     out = torch.empty(n, LANES, dtype=torch.float32, device=dev)
-    staged = ctypes.c_int(0)
-    lib, f = _lib(GATHER, "probe_gather_launch", (_c, _c, _i, _i, _i, _i, _i, _c,
-                                                   ctypes.POINTER(ctypes.c_int), _c))
-    err = f(build.ptr(tbl), build.ptr(idx), rows, n, axis, reps, int(tbl.dtype == torch.bfloat16),
-            build.ptr(out), ctypes.byref(staged), build.stream_ptr(dev))
-    build.check(lib, GATHER, err)
-    build.launches[GATHER] += 1
+    place, w, blocks, _ = gather_plan(rows, n, axis, reps, tbl.element_size(),
+                                      gather_limits(out.get_device()), width)
+    if n:
+        lib, f = _lib(GATHER, "probe_gather_launch", _GATHER_ARGS)
+        err = f(tbl.data_ptr(), idx.data_ptr(), rows, n, axis, reps,
+                int(tbl.dtype == torch.bfloat16), w, blocks, out.data_ptr(), build.stream_ptr(dev))
+        build.check(lib, GATHER, err)
+        build.launches[GATHER] += 1
     if where is not None:
-        where.append("shared" if staged.value else "l2")
+        where.append(place)
     return out
 
 
@@ -261,19 +317,23 @@ def capacity_plain(rows: int, device=None):
     return out
 
 
+_where = ctypes.c_int(0)  # C's refusal stage, written by every launch call
+_WHERE_AT = ctypes.addressof(_where)
+
+
 def capacity(rows: int, device):
     """(rows, 128) float32 zeros with [0, 0] = 1, built whole in one CTA's
-    shared memory on the card (``rows * 512`` bytes); raises ``Refused``
-    when the card will not give one block that much."""
+    shared memory on the card (``rows * 512`` bytes) and written out by
+    bulk stores; raises ``Refused`` when the card will not give one block
+    that much."""
     device = torch.device(device)
     if device.type == "cpu":
         return capacity_plain(rows, device)
     out = torch.empty(rows, LANES, dtype=torch.float32, device=device)
-    where = ctypes.c_int(0)
-    lib, f = _lib(CAPACITY, "probe_capacity_launch", (_c, _i, ctypes.POINTER(ctypes.c_int), _c))
-    err = f(build.ptr(out), rows, ctypes.byref(where), build.stream_ptr(device))
+    lib, f = _lib(CAPACITY, "probe_capacity_launch", (_c, _i, _c, _c))
+    err = f(out.data_ptr(), rows, _WHERE_AT, build.stream_ptr(device))
     if err:
-        stage = "cudaFuncSetAttribute" if where.value == 1 else "launch"
+        stage = "cudaFuncSetAttribute" if _where.value == 1 else "launch"
         raise Refused(f"kernel {CAPACITY} refused at {stage}: CUDA error {err} "
                       f"({lib.error_string(err).decode()})", stage)
     build.launches[CAPACITY] += 1

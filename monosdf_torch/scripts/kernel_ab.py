@@ -19,16 +19,26 @@ per call and the host us per call. The inputs:
   and the sums do not depend on their order; and at both point sets the
   atomics K5 issues (``k5_atomics``), which depend on the points alone.
 
-``--probes`` times R (the per-row bulk copy) and S (the run scatter)
-instead, at the smoke's probe cases (``PROBE_CASES``: inputs from the
+``--probes`` times G (the dynamic gather), S (the run scatter), R (the
+per-row bulk copy) and C (the capacity probe) instead (``--kernels``
+picks some), at the smoke's probe cases (``PROBE_CASES``: inputs from the
 checkout's own probe waves, seeded random values in place of the probe's
 constant ones): a digest and whether a second call gives the same bits,
 the error against the plain version over the smoke's bar, wall, device
 (the kernel's, by the profiler; all of the call's device work with the
 calls queued back to back, ``queued_ms``) and host time per call,
-the library call's time, the bound and, for R, the copy floor.
-``--probes --sweep`` also times R over its ring depths and S's atomic
-pass over its span lengths (``stages``, ``span``: keywords this
+the library call's time, the bound, for R the copy floor, for G its
+shared-memory floor and where it read the table; the probe's own ms per
+launch of each case (``wave_ms``: its waves' timing, one warm-up call
+then 5 timed calls) in a first and a second pass of the waves in one
+process (``wave_ms_first_pass``); for G's staged axis-0 cases (this
+checkout's column slices) the device ms at 0 and 1 reps, staged at the
+case's width, beside the case's own (the staging and the index and
+output traffic apart from the reps' reads); for C the device ms over its
+ladder of sizes (one CTA: one SM's fill and store rate).
+``--probes --sweep`` also times R over its ring depths, S's atomic
+pass over its span lengths and G's staged axis-0 cases over the column
+slice widths that fit (``stages``, ``span``, ``width``: keywords this
 checkout's wrappers take) at the same inputs: wall, device and queued ms.
 ``--profiler_check N`` adds N readings of K5's device ms at the grid
 step's points both ways: the sum over one profiler session (with its
@@ -91,25 +101,48 @@ def k5_atomics(g, xs, size: float = 1.0) -> dict:
 
 
 SWEEP = {"probe_row_copy": ("stages", (32, 64, 128, 256, 384)),
-         "probe_scatter_rows": ("span", (8, 16, 32, 64, 128, 256))}
+         "probe_scatter_rows": ("span", (8, 16, 32, 64, 128, 256)),
+         "probe_gather": ("width", (1, 2, 4, 8, 16))}
 
 
-def probes_ab(cs, dev, reps: int, sweep: bool = False) -> dict:
-    """R and S at the smoke's probe cases (see the module's docstring)."""
+def _sweep_values(cs, kernel: str, inputs: dict, where: str, dev) -> tuple:
+    """The values of the kernel's swept keyword at these inputs: none for
+    S's sorted pass and for G's cases that are not staged along axis 0; G's
+    widths whose column slice fits one block's shared memory."""
+    if kernel not in SWEEP or inputs.get("sorted_offs"):
+        return ()
+    values = SWEEP[kernel][1]
+    if kernel == "probe_gather":
+        from monosdf_torch.kernels import probes
+
+        if inputs["axis"] != 0 or where != "shared":
+            return ()
+        tbl, optin = inputs["tbl"], probes.gather_limits(dev.index or 0)[0]
+        values = tuple(v for v in values if tbl.shape[0] * v * tbl.element_size() <= optin)
+    return values
+
+
+def probes_ab(cs, dev, reps: int, sweep: bool = False, kernels=None) -> dict:
+    """G, S, R and C (or ``kernels``) at the smoke's probe cases (see the
+    module's docstring)."""
     from monosdf_torch.scripts import probe_hash_primitives as probe
 
-    cases = {c: kw for c, (kw, _) in cs.PROBE_CASES.items()
-             if kw in ("probe_row_copy", "probe_scatter_rows")}
+    kernels = kernels or cs.SPLIT_KERNELS
+    cases = {c: kw for c, (kw, _) in cs.PROBE_CASES.items() if kw in kernels}
+    first_pass: dict = {}
     keep: dict = {}
-    for w in sorted({cs.PROBE_CASES[c][1] for c in cases}):
-        probe.WAVES[w](dev, only=tuple(c for c in cases if cs.PROBE_CASES[c][1] == w), keep=keep)
+    for kept in (first_pass, keep):  # the waves twice: a process's first timed calls apart
+        for w in sorted({cs.PROBE_CASES[c][1] for c in cases}):
+            probe.WAVES[w](dev, only=tuple(c for c in cases if cs.PROBE_CASES[c][1] == w),
+                           keep=kept)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 7)
     fns, out = cs._probe_fns(), {}
     for case, kernel in cases.items():
         wrap, plain = fns[kernel]
         inputs = cs._random_like(kernel, keep[case]["inputs"], gen)
         fn = lambda: wrap(**inputs)
-        first, second = fn(), fn()
+        where = []
+        first, second = wrap(**inputs, **({"where": where} if kernel == "probe_gather" else {})), fn()
         err, ratio = cs._probe_err(kernel, inputs, first, plain(**inputs))
         entry = {"kernel": kernel, "digest": digest(first),
                  "rerun_bit_equal": cs.bits_equal(first, second), "max_abs_err": err,
@@ -120,8 +153,25 @@ def probes_ab(cs, dev, reps: int, sweep: bool = False) -> dict:
                  "bound_ms": cs._probe_bound(kernel, inputs, first)[0]}
         if kernel == "probe_row_copy":
             entry["copy_floor_ms"] = cs.row_copy_floor_ms(inputs)
-        if sweep and not inputs.get("sorted_offs"):
-            key, values = SWEEP[kernel]
+        entry.update(wave_ms_first_pass=first_pass[case]["ms"], wave_ms=keep[case]["ms"])
+        if kernel == "probe_gather":
+            entry.update(where=where[0], smem_floor_ms=cs.smem_floor_ms(inputs))
+            from monosdf_torch.kernels import probes
+
+            if where[0] == "shared" and inputs["axis"] == 0 and hasattr(probes, "gather_plan"):
+                tbl = inputs["tbl"]
+                w = probes.gather_plan(tbl.shape[0], inputs["idx"].shape[0], 0, inputs["reps"],
+                                       tbl.element_size(), probes.gather_limits(dev.index or 0))[1]
+                at = lambda r: lambda: wrap(**{**inputs, "reps": r}, width=w)
+                entry["device_ms_by_reps"] = {r: cs.device_ms(at(r), kernel, reps)
+                                              for r in (0, 1)}
+        if kernel == "probe_capacity":
+            at = lambda kb: lambda: wrap(rows=kb * 2, device=inputs["device"])
+            entry["device_ms_by_kb"] = {kb: cs.device_ms(at(kb), kernel, reps)
+                                        for kb in (1, 32, 64, 128, 227)}
+        values = _sweep_values(cs, kernel, inputs, where[0] if where else "", dev) if sweep else ()
+        if values:
+            key = SWEEP[kernel][0]
             at = lambda v: lambda: wrap(**inputs, **{key: v})
             entry["sweep"] = {v: (cs.cuda_ms(at(v), reps), cs.device_ms(at(v), kernel, reps),
                                   cs.queued_ms(at(v)))
@@ -145,8 +195,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=None)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--probes", action="store_true", help="time R and S only")
-    ap.add_argument("--sweep", action="store_true", help="with --probes: R's rings, S's spans")
+    ap.add_argument("--probes", action="store_true", help="time the probe kernels G, S, R, C only")
+    ap.add_argument("--kernels", default="",
+                    help="with --probes: a comma list of them (probe_gather, ...)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="with --probes: R's rings, S's spans, G's slice widths")
     ap.add_argument("--profiler_check", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -164,7 +217,8 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"root": root, "card": torch.cuda.get_device_name(0)}
     if args.probes:
-        out["probes"] = probes_ab(cs, dev, args.reps, args.sweep)
+        out["probes"] = probes_ab(cs, dev, args.reps, args.sweep,
+                                  tuple(k for k in args.kernels.split(",") if k))
         print(json.dumps(out))
         return
     timing = lambda fn, kernel: {"ms": cs.cuda_ms(fn, args.reps),

@@ -1015,11 +1015,12 @@ def _launched(before):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,n,axis,dtype,where", [
-    (8, 8, 0, torch.float32, "shared"), (8192, 8192, 0, torch.float32, "l2"),
-    (512, 512, 1, torch.float32, "shared"), (32768, 2048, 0, torch.bfloat16, "l2")])
-def test_probe_gather_matches_plain(dev, rows, n, axis, dtype, where):
-    """G at P1's and P8's shapes, exactly: the same float32 adds in order."""
+@pytest.mark.parametrize("rows,n,axis,dtype,reps,where", [
+    (8, 8, 0, torch.float32, 32, "shared"), (8192, 8192, 0, torch.float32, 32, "shared"),
+    (512, 512, 1, torch.float32, 32, "shared"), (32768, 2048, 0, torch.bfloat16, 8, "l2")])
+def test_probe_gather_matches_plain(dev, rows, n, axis, dtype, reps, where):
+    """G at P1's and P8's shapes and reps, exactly: the same float32 adds in
+    order."""
     from monosdf_torch.kernels import probes
 
     gen = torch.Generator(device=dev).manual_seed(rows + axis)
@@ -1027,10 +1028,100 @@ def test_probe_gather_matches_plain(dev, rows, n, axis, dtype, where):
     idx = torch.randint(0, rows if axis == 0 else 128, (n, 128), generator=gen, device=dev,
                         dtype=torch.int32)
     before, seen = dict(build.launches), []
-    out = probes.gather(tbl, idx, axis, 32, seen)
+    out = probes.gather(tbl, idx, axis, reps, seen)
     torch.cuda.synchronize()
     assert _launched(before) == {"probe_gather": 1} and seen == [where]
-    assert torch.equal(out, probes.gather_plain(tbl, idx, axis, 32))
+    assert torch.equal(out, probes.gather_plain(tbl, idx, axis, reps))
+
+
+def _gather_case(dev, rows, n, axis, dtype, seed):
+    """A table of seeded normal values and indices that reach 50 past
+    either end of the gathered axis (clamped by the kernel)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tbl = torch.randn(rows, 128, generator=gen, device=dev).to(dtype)
+    hi = rows if axis == 0 else 128
+    idx = torch.randint(-50, hi + 50, (n, 128), generator=gen, device=dev, dtype=torch.int32)
+    return tbl, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,reps,dtype,width,where", [
+    (512, 1000, 4, torch.float32, 3, "shared"),        # ragged last column slice and row block
+    (512, 4096, 4, torch.float32, None, "shared"),     # 16 slices x 33 blocks: more CTAs than SMs
+    (8192, 8192, 32, torch.float32, None, "shared"),   # P1: 32 slices x 4 blocks
+    (4096, 1001, 8, torch.bfloat16, None, "shared"),   # 8 slices x 16 blocks, the last ragged
+    (4099, 1001, 8, torch.bfloat16, 5, "shared"),      # 10-byte rows of a slice, staged 2 bytes a load
+    ("limit", 2048, 32, torch.float32, None, "shared"),  # one column just fits
+    ("limit+1", 2048, 32, torch.float32, None, "l2"),    # one column does not
+    ("limit", 2048, 64, torch.bfloat16, None, "shared"),
+    ("limit+1", 2048, 64, torch.bfloat16, None, "l2"),
+    (4096, 256, 16, torch.float32, None, "shared"),    # reps n == rows: staged
+    (4096, 256, 15, torch.float32, None, "l2"),        # reps n < rows: through L2
+    (4096, 256, 16, torch.bfloat16, None, "shared"),
+    (4096, 256, 15, torch.bfloat16, None, "l2"),
+    (7, 3, 32, torch.float32, None, "shared")])         # a 7-row table, 3 output rows, one block
+def test_probe_gather_staging_over_slices_blocks_and_rules(dev, rows, n, reps, dtype, width, where):
+    """G along axis 0 over column-slice widths, row blocks and both sides of
+    its staging rules (reps n >= rows; a one-column slice within the card's
+    per-block shared memory, at the limit and one row past it): the plain
+    version's bits with indices clamped into the table, the reported
+    ``where``, one launch a call and a second call bit-equal."""
+    from monosdf_torch.kernels import probes
+
+    limits = probes.gather_limits(torch.cuda.current_device())
+    if isinstance(rows, str):
+        rows = limits[0] // (2 if dtype == torch.bfloat16 else 4) + rows.endswith("+1")
+    tbl, idx = _gather_case(dev, rows, n, 0, dtype, rows + n + reps)
+    plan = probes.gather_plan(rows, n, 0, reps, tbl.element_size(), limits, width)
+    if n == 4096:
+        assert plan[3] > limits[1]  # more CTAs than SMs
+    before, seen = dict(build.launches), []
+    out = probes.gather(tbl, idx, 0, reps, seen, width=width)
+    again = probes.gather(tbl, idx, 0, reps, width=width)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"probe_gather": 2} and seen == [where] == [plan[0]]
+    assert torch.equal(out, again)
+    assert torch.equal(out, probes.gather_plain(tbl, idx, 0, reps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,dtype", [(512, torch.float32), (1001, torch.bfloat16)])
+def test_probe_gather_axis1_clamps_and_takes_a_ragged_last_cta(dev, rows, dtype):
+    """G along axis 1 (AX1_ROWS rows a CTA, the last ragged at 1001 rows):
+    indices outside the row clamped, the plain version's bits, "shared"."""
+    from monosdf_torch.kernels import probes
+
+    tbl, idx = _gather_case(dev, rows, rows, 1, dtype, rows)
+    before, seen = dict(build.launches), []
+    out = probes.gather(tbl, idx, 1, 32, seen)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"probe_gather": 1} and seen == ["shared"]
+    assert torch.equal(out, probes.gather_plain(tbl, idx, 1, 32))
+
+
+@pytest.mark.cuda
+def test_probe_capacity_grants_above_its_high_water_mark_and_refuses_past_the_card(dev):
+    """C over sizes that are no multiple of its 4 KB bulk-store piece (512 B,
+    4.5 KB, 227 KB) and in an order that crosses its high-water mark: a
+    granted size after a refused one, a refused size (one row past the
+    card's per-block maximum, then 32 MB) after a granted one, each refusal
+    at cudaFuncSetAttribute with no launch counted."""
+    from monosdf_torch.kernels import probes
+
+    optin_rows = probes.device_limits(dev)["sharedMemPerBlockOptin"] // 512
+    for rows, granted in ((1, True), (9, True), (optin_rows, True), (optin_rows + 1, False),
+                          (64, True), (optin_rows, True), (32 * 1024 * 1024 // 512, False),
+                          (optin_rows - 1, True)):
+        before = dict(build.launches)
+        if granted:
+            out = probes.capacity(rows, dev)
+            torch.cuda.synchronize()
+            assert _launched(before) == {"probe_capacity": 1}
+            assert torch.equal(out, probes.capacity_plain(rows, dev))
+        else:
+            with pytest.raises(probes.Refused, match="cudaFuncSetAttribute") as e:
+                probes.capacity(rows, dev)
+            assert e.value.where == "cudaFuncSetAttribute" and _launched(before) == {}
 
 
 @pytest.mark.cuda

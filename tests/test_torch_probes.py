@@ -98,6 +98,39 @@ def test_p8_row_broadcast_gather_matches_g(rows, n, dt):
     np.testing.assert_array_equal(out_t.numpy(), out_j)
 
 
+# G's launch plan on an H100's limits (sharedMemPerBlockOptin,
+# multiProcessorCount, sharedMemPerMultiprocessor, maxThreadsPerMultiProcessor)
+H100_LIMITS = (232_448, 132, 233_472, 2048)
+
+
+@pytest.mark.parametrize("rows,n,axis,reps,elem,width,plan", [
+    (8192, 8192, 0, 32, 4, None, ("shared", 4, 4, 128)),  # P1 8192: 4-column slices, one CTA an SM
+    (8, 8, 0, 32, 4, None, ("shared", 8, 1, 16)),         # P1 8: 32-byte slices
+    (512, 512, 1, 32, 4, None, ("shared", 0, 0, 128)),    # P1 axis 1: 4 rows a CTA
+    (32768, 2048, 0, 8, 2, None, ("l2", 0, 0, 1024)),     # P8: reps n < rows
+    (58112, 2048, 0, 32, 4, None, ("shared", 1, 1, 128)),  # one float32 column just fits
+    (58113, 2048, 0, 32, 4, None, ("l2", 0, 0, 1024)),     # and one row more does not
+    (4096, 256, 0, 16, 2, None, ("shared", 16, 8, 64)),   # reps n == rows, bf16
+    (4096, 256, 0, 15, 2, None, ("l2", 0, 0, 128)),
+    (512, 4096, 0, 4, 4, None, ("shared", 8, 33, 528)),   # more CTAs than SMs
+    (512, 1000, 0, 4, 4, 3, ("shared", 3, 6, 258))])      # a forced width: ragged last slice
+def test_g_staging_plan_on_h100_limits(rows, n, axis, reps, elem, width, plan):
+    """G's staging rule and its grid (``probes.gather_plan``), a pure
+    function: the cases of csrc/probe_gather.cu's design on an H100."""
+    assert probes.gather_plan(rows, n, axis, reps, elem, H100_LIMITS, width) == plan
+
+
+def test_g_clamps_and_takes_width_on_the_cpu():
+    """G's plain version clamps indices into the table as the kernel does;
+    the ``width`` keyword changes nothing on the CPU."""
+    rng = np.random.default_rng(14)
+    tbl = _t(rng.normal(size=(16, 128)).astype(np.float32))
+    idx = _t(rng.integers(-3, 19, (5, 128)).astype(np.int32))
+    ref = probes.gather_plain(tbl, idx.clamp(0, 15), 0, 3)
+    assert torch.equal(probes.gather(tbl, idx, 0, 3, width=2), ref)
+    assert torch.equal(probes.gather_plain(tbl, idx, 0, 3), ref)
+
+
 # -- S: P2 (:192) and P4 (:534) -------------------------------------------------
 
 def _assert_sums_close(out_t, out_j, mag):

@@ -253,16 +253,17 @@ def _jax_steps(case, jparams, batches, keys):
     """The JAX training step (make_train_step's train_step,
     monosdf_tpu/train/step.py:55-62: loss_fn under value_and_grad, then the
     optimizer's update, applied) once per batch, on the jitted
-    value_and_grad the step test compiles: the parameters after the steps,
+    value_and_grad the step test compiles: the parameters after each step,
     and each step's metrics."""
     vg = _jax_value_and_grad(case)
-    params, opt_state, metrics = jparams, _jinit(jparams), []
+    params, opt_state, after, metrics = jparams, _jinit(jparams), [], []
     for i, (b, k) in enumerate(zip(batches, keys)):
         (_, m), grads = vg(params, _to_jax(b), k, jnp.int32(i))
         updates, opt_state = _jupdate(grads, opt_state, params)
         params = _japply(params, updates)
+        after.append(params)
         metrics.append({kk: float(v) for kk, v in m.items()})
-    return params, metrics
+    return after, metrics
 
 
 # Loss and its terms (rtol 1e-5; the depth term 1e-4: its scale/shift solve
@@ -325,10 +326,9 @@ def test_three_step_loss_trajectory_matches_jax():
     # 1e-7 of the lr-sized move: the two programs fuse differently)
     state, m0 = jit_ref(jt.make_train_step(jcfg, jl.LossConfig(), JOPT))(
         jt.init_train_state(jparams, JOPT), _to_jax(batches[0]), keys[0])
-    jp1, mj1 = _jax_steps("pallas", jparams, batches[:1], keys[:1])
     assert int(state.step) == 1
-    np.testing.assert_allclose(float(m0["loss"]), mj1[0]["loss"], rtol=1e-6)
-    p_ref, p_copy = _flat_jax(state.params), _flat_jax(jp1)
+    np.testing.assert_allclose(float(m0["loss"]), mj[0]["loss"], rtol=1e-6)
+    p_ref, p_copy = _flat_jax(state.params), _flat_jax(jp_after[0])
     assert p_ref.keys() == p_copy.keys()
     for n in p_ref:
         np.testing.assert_allclose(p_copy[n], p_ref[n], atol=1e-7, rtol=0, err_msg=n)
@@ -344,7 +344,7 @@ def test_three_step_loss_trajectory_matches_jax():
     # is near Adam's eps takes a different share of that move from float32
     # differences in its gradient (measured 1.5e-5); a wrong step would be
     # off by up to 2 lr
-    pj = _flat_jax(jp_after)
+    pj = _flat_jax(jp_after[-1])
     for n, p in model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), pj[n], atol=5e-5, rtol=0, err_msg=n)
 
