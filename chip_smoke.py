@@ -8,14 +8,16 @@ sweeps through K1-PE (sweep_pe_in_kernel, scripts/bench_step.py --sweep_pe),
 its hash-grid model (bench.py --grids) and the appearance-code model of
 confs/synth_union_quality.conf (cli/eval.py union_codes_config: per-image
 codes, white background, sphere sampler), the last with its radiance
-through K3 and through K8a. Phases (any failure exits non-zero):
+through K3 and through K8a; all on the synthetic sphere, and the
+appearance-code model also on a union scene that the port generates and
+reads from disk. Phases (any failure exits non-zero):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the kernels' nineteen libraries from monosdf_torch/csrc with nvcc
    for sm_90a, one nvcc per source, all at once (twenty kernels: K1-PE is
    K1's library on raw points, counted on its own); count the HGMMA
    (wgmma) instructions in the SASS of the tensor-core kernels' libraries,
-   the bulk copies (UBLKCP) in R's and the bulk stores (UBLKCP.G.S) in
-   C's (cuobjdump), failing on none;
+   the bulk copies (UBLKCP) in R's and M's and the bulk stores
+   (UBLKCP.G.S) in C's (cuobjdump), failing on none;
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, and time kernel and plain version (CUDA events):
    the forwards at the shapes of one 1024-ray render chunk of the bench's
@@ -69,25 +71,38 @@ through K3 and through K8a. Phases (any failure exits non-zero):
    K3's place: K1 = K4 = 5, K2f = K8a = 1 per chunk, K2b = K8a's backward
    = 1 more per step, K3 0): a render, the steps, the step check, a
    profile of a chunk and of a step;
-9. the nerf radiance check: fields.rendering_apply_pallas in nerf mode with
+9. the scene: a union scene (4 views of 64x64, PNG frames and masks)
+   written by the port's generator (monosdf_torch/scripts/
+   make_synthetic_scene.py) into a temporary directory and loaded by
+   data.SceneDataset (masks on); 3 warm-up and 20 timed steps of
+   cli/train.py's step of the union-codes model on distinct 1024-ray
+   batches of its pixel_rays (launches as phase 8's, losses and gradients
+   finite), every view through cli/eval.py's evaluate from image_rays
+   (each frame with its code, launches per chunk as phase 8's), each
+   frame's PSNR; then the HDR scene (--hdr: EXR frames, the model's HDR
+   output and gamma loss): 3 + 5 steps and one view, its PSNR through the
+   sRGB gamma; generation, load, step and render times; fails where jax,
+   monosdf_tpu, cv2 or PIL was imported;
+10. the nerf radiance check: fields.rendering_apply_pallas in nerf mode with
    codes (K8b on [view PE | features | code], 315 wide) at 100,352 samples,
    forward and backward through autograd, against rendering_apply, in
    float32 and bf16 (K8b and its backward once each);
-10. the probes (monosdf_torch/scripts/probe_hash_primitives.py, the port
+11. the probes (monosdf_torch/scripts/probe_hash_primitives.py, the port
    of scripts/probe_hash_primitives.py): its wave functions at full size,
    launches counted from 0, on one case of each Pallas site (PROBE_CASES:
    G, S, R, M, C, each launched 6 times per case), then each kept output
    against its kernel's plain version on the same inputs, and each kernel
    again on seeded random inputs of the same shapes (the probe's own values
-   are constant); times, rates, bounds and library calls, and for G, S, R
-   and C each call's device time (torch.profiler; and with the calls
+   are constant); times, rates, bounds and library calls, and for G, S, R,
+   M and C each call's device time (torch.profiler; and with the calls
    queued back to back) and host time, R's copy floor (its rows' bytes at
    3.35 TB/s) and G's shared-memory floor (its reps' reads at 32 a clock
    on each SM);
-11. print a ``render``, a ``train``, a ``render_pe``, a ``train_pe``, a
+12. print a ``render``, a ``train``, a ``render_pe``, a ``train_pe``, a
    ``render_grids``, a ``train_grids``,
    a ``render_codes``, a ``train_codes``, a ``render_codes_split``, a
-   ``train_codes_split``, a ``nerf_radiance`` and a ``probes`` JSON line,
+   ``train_codes_split``, a ``scene``, a ``nerf_radiance`` and a ``probes``
+   JSON line,
    the ``kernels`` JSON line, the card line (nvidia-smi's name and power
    limit), and last the result line.
 """
@@ -420,6 +435,10 @@ def launch_counts() -> dict:
     from monosdf_torch.kernels import build
 
     return {**build.launches, **build.reference_launches}
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
 
 
 def sass_counts(libs, opcode: str) -> dict:
@@ -1589,8 +1608,142 @@ def profile_phase(runs, info, train_run, train_info, what: str = ""):
     print(f"profile{what} train bf16: {json.dumps(prof)}", flush=True)
 
 
+# the scene phase: the union model on a union scene the port generates and
+# reads, 4 views of 64x64 (LDR: PNG frames; HDR: EXR frames, 3 warm-up and
+# SCENE_HDR_STEPS timed steps, one view rendered)
+SCENE_VIEWS, SCENE_RES, SCENE_HDR_STEPS = 4, 64, 5
+# modules the port's data path must not pull in (the card's machine has none)
+FOREIGN = ("jax", "jaxlib", "monosdf_tpu", "cv2", "PIL")
+
+
+def scene_phase(dev):
+    """Phase 9: the union-codes model (cli/eval.py union_codes_config, bf16)
+    on a union scene generated by the port's generator
+    (monosdf_torch/scripts/make_synthetic_scene.py: PNG frames and masks)
+    into a temporary directory and loaded by data.SceneDataset (masks on, as
+    confs/synth_union_quality.conf): WARMUP_STEPS warm-up and TIMED_STEPS
+    timed steps of cli/train.py's step on distinct 1024-ray batches of
+    ``pixel_rays()`` (launches PER_STEP a step, losses and gradients
+    finite), then every view through cli/eval.py's ``evaluate`` from
+    ``image_rays(i)``, each frame with its code (PER_CHUNK a chunk), each
+    frame's PSNR. Then the same with ``--hdr`` (EXR frames, ``if_hdr``: the
+    ReLU output and the gamma rgb loss): SCENE_HDR_STEPS timed steps and one
+    view, its PSNR through the sRGB gamma. Fails where a module of FOREIGN
+    was imported. Returns the ``scene`` line."""
+    import tempfile
+
+    from monosdf_torch.cli.eval import dataset_frames, evaluate, union_codes_config
+    from monosdf_torch.cli.train import make_trainer, ray_batches
+    from monosdf_torch.data.scene_dataset import DatasetConfig, SceneDataset
+    from monosdf_torch.kernels import build
+    from monosdf_torch.models.monosdf import init_monosdf
+    from monosdf_torch.scripts import make_synthetic_scene
+
+    line, total = {}, dict.fromkeys(launch_counts(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for hdr in (False, True):
+            tag = "scene hdr" if hdr else "scene"
+            root = os.path.join(tmp, tag.replace(" ", "_"))
+            t0 = time.perf_counter()
+            make_synthetic_scene.main([root, "--shape", "union", "--n", str(SCENE_VIEWS), "--res",
+                                       str(SCENE_RES), *(["--hdr"] if hdr else [])])
+            t_gen = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ds = SceneDataset(DatasetConfig(data_dir="union_scene", img_res=(SCENE_RES, SCENE_RES),
+                                            data_root=root, if_hdr=hdr, use_mask=True))
+            scene = ds.pixel_rays()
+            t_load = time.perf_counter() - t0
+            files = sorted(os.listdir(os.path.join(root, "union_scene", "Image")))
+            print(f"{tag}: generated {files} in {t_gen:.3f} s, loaded {scene['rgb'].shape[0]} rays "
+                  f"of {ds.n_images} views in {t_load:.3f} s; rgb {scene['rgb'].min():.3f} .. "
+                  f"{scene['rgb'].max():.3f}, mask share {scene['mask'].mean():.3f}", flush=True)
+            ext = ".exr" if hdr else ".png"
+            if len(files) != SCENE_VIEWS or not all(f.endswith(ext) for f in files):
+                fail(f"{tag}: the generator wrote {files}, not {SCENE_VIEWS} {ext} frames")
+            if not np.isfinite(scene["rgb"]).all() or (scene["rgb"].max() > 1.0) != hdr:
+                fail(f"{tag}: rgb not finite, or its range {scene['rgb'].max()} does not fit "
+                     f"{'HDR' if hdr else 'LDR'} frames")
+
+            cfg = union_codes_config("bfloat16")
+            if hdr:
+                cfg = dataclasses.replace(cfg, rendering=dataclasses.replace(cfg.rendering,
+                                                                             if_hdr=True))
+            timed = SCENE_HDR_STEPS if hdr else TIMED_STEPS
+            model = init_monosdf(cfg, seed=SEED, device=dev)
+            step = make_trainer(model, cfg)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            batches = ray_batches(scene, np.random.default_rng(SEED), WARMUP_STEPS + timed, CHUNK,
+                                  dev)
+            for b in batches[:WARMUP_STEPS]:
+                step(model, b, generator=gen)
+            torch.cuda.synchronize()
+            # the main path: timed steps on distinct batches, launches counted
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            metrics = [step(model, b, generator=gen) for b in batches[WARMUP_STEPS:]]
+            torch.cuda.synchronize()
+            ms_step = (time.perf_counter() - t0) / timed * 1e3
+            counts = launch_counts()
+            expect = {k: v * timed for k, v in PER_STEP.items()}
+            losses = [float(m["loss"]) for m in metrics]
+            print(f"{tag} train bf16: {timed} steps after {WARMUP_STEPS} warm-up, {ms_step:.3f} "
+                  f"ms/step ({CHUNK / ms_step * 1e3:.1f} rays/s); launches {_nonzero(counts)} "
+                  f"(expected {_nonzero(expect)}); loss {[round(v, 5) for v in losses]}; psnr "
+                  f"{[round(float(m['psnr']), 3) for m in metrics]}", flush=True)
+            if counts != expect:
+                fail(f"{tag} train launch counts {counts} != {expect}")
+            if not all(math.isfinite(v) for v in losses):
+                fail(f"{tag}: a training loss is not finite")
+            for n, p in model.named_parameters():
+                if p.grad is None or not torch.isfinite(p.grad).all() or not torch.isfinite(p).all():
+                    fail(f"{tag} {n}: gradient or parameter not finite after the timed steps")
+            for k, v in counts.items():
+                total[k] += v
+
+            frames = dataset_frames(ds, dev)[:1 if hdr else None]
+            chunks = sum(-(-f["rays"]["rays_o"].shape[0] // CHUNK) for f in frames)
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            rows, outs = evaluate(model, cfg, frames, CHUNK)
+            torch.cuda.synchronize()
+            t_render = time.perf_counter() - t0
+            counts = launch_counts()
+            expect = {k: v * chunks for k, v in PER_CHUNK.items()}
+            psnrs = [r[1] for r in rows]
+            print(f"{tag} render bf16: {len(frames)} views, {chunks} chunks in {t_render:.3f} s; "
+                  f"launches {_nonzero(counts)} (expected {_nonzero(expect)}); psnr vs gt "
+                  f"{'through the sRGB gamma ' if hdr else ''}{[round(v, 3) for v in psnrs]}",
+                  flush=True)
+            if counts != expect:
+                fail(f"{tag} render launch counts {counts} != {expect}")
+            for f, out in zip(frames, outs):
+                n = f["rays"]["rays_o"].shape[0]
+                if any(out[k].shape[0] != n or not torch.isfinite(out[k]).all() for k in out):
+                    fail(f"{tag} view {f['frame_idx']}: a render output of the wrong shape or "
+                         "not finite")
+            if not all(math.isfinite(v) for v in psnrs):
+                fail(f"{tag}: a PSNR is not finite")
+            for k, v in counts.items():
+                total[k] += v
+            line["hdr" if hdr else "ldr"] = {
+                "views": ds.n_images, "img_res": [SCENE_RES, SCENE_RES], "generate_s": t_gen,
+                "load_s": t_load, "steps": timed, "warmup": WARMUP_STEPS, "ms_per_step": ms_step,
+                "rays_per_s": CHUNK / ms_step * 1e3, "loss": losses, "render_views": len(frames),
+                "render_chunks": chunks, "render_s": t_render, "psnr": psnrs,
+                "psnr_through_gamma": hdr}
+            del model, step, batches
+            torch.cuda.empty_cache()
+    foreign = sorted({m.split(".")[0] for m in sys.modules} & set(FOREIGN))
+    print(f"scene: modules of {list(FOREIGN)} imported: {foreign}", flush=True)
+    if foreign:
+        fail(f"the scene phase imported {foreign}")
+    line["launches"] = total
+    return line
+
+
 def nerf_phase(dev):
-    """Phase 9: fields.rendering_apply_pallas in nerf mode with codes (K8b
+    """Phase 10: fields.rendering_apply_pallas in nerf mode with codes (K8b
     on h0 = [view PE | features | code], 27 + 256 + 32 = 315 wide) at the
     step's 100,352 samples, forward and backward through autograd, launches
     counted from 0, against rendering_apply (the plain path through
@@ -1697,8 +1850,9 @@ PROBE_PRIMARY = {"probe_gather": "pl_dyngather_ax0_8192x128",
 # sums of the same terms in another order (the atomics' order changes from
 # run to run); G, M (0/1 permutation) and C exactly
 PROBE_SUM_RTOL = 1e-5
-# the probe kernels whose calls phase 10 splits into device and host time
-SPLIT_KERNELS = ("probe_gather", "probe_scatter_rows", "probe_row_copy", "probe_capacity")
+# the probe kernels whose calls phase 11 splits into device and host time
+SPLIT_KERNELS = ("probe_gather", "probe_scatter_rows", "probe_row_copy", "probe_strided_permute",
+                 "probe_capacity")
 
 
 def _probe_fns():
@@ -1818,12 +1972,12 @@ def _probe_library(kernel: str, inputs: dict):
 
 
 def probes_phase(dev, results):
-    """Phase 10: the probe waves (monosdf_torch/scripts/probe_hash_primitives.py)
+    """Phase 11: the probe waves (monosdf_torch/scripts/probe_hash_primitives.py)
     at full size on PROBE_CASES, launches counted from 0 and checked exactly
     (LAUNCHES_PER_CASE per case), each kept output against its plain
     version, each kernel again on random inputs of the case's shapes; per
     case ms (per launch), the probe's rate, bound, plain and library times;
-    for G, S, R and C the device ms (profiled, queued) and host us of a
+    for G, S, R, M and C the device ms (profiled, queued) and host us of a
     call, for R its copy floor, for G its shared-memory floor.
     Fills results[kernel] for the kernels line; returns the probes line."""
     from monosdf_torch.kernels import build, probes
@@ -1927,11 +2081,11 @@ def main(argv):
     print(f"HGMMA instructions in SASS: {json.dumps(hgmma)}", flush=True)
     if not all(hgmma.values()):
         fail(f"a tensor-core library has no HGMMA in its SASS: {hgmma}")
-    # R copies each row by its own bulk copy (cp.async.bulk: UBLKCP)
-    bulk = sass_counts(("probe_row_copy",), "UBLKCP")
+    # R copies each row by its own bulk copy, M its x window and P (cp.async.bulk: UBLKCP)
+    bulk = sass_counts(("probe_row_copy", "probe_strided_permute"), "UBLKCP")
     print(f"UBLKCP instructions in SASS: {json.dumps(bulk)}", flush=True)
     if not all(bulk.values()):
-        fail(f"R's library has no bulk copy (UBLKCP) in its SASS: {bulk}")
+        fail(f"R's or M's library has no bulk copy (UBLKCP) in its SASS: {bulk}")
     # C writes its output by bulk stores (cp.async.bulk.global.shared::cta: UBLKCP.G.S)
     bulk_store = sass_counts(("probe_capacity",), "UBLKCP.G.S")
     print(f"UBLKCP.G.S instructions in SASS: {json.dumps(bulk_store)}", flush=True)
@@ -1951,7 +2105,8 @@ def main(argv):
             results[name]["sass_hgmma"] = hgmma[build.SOURCE_OF[name]]
     if "--kernels" in argv:
         probes_phase(dev, results)
-        results["probe_row_copy"]["sass_ublkcp"] = bulk["probe_row_copy"]
+        for name in bulk:
+            results[name]["sass_ublkcp"] = bulk[name]
         results["probe_capacity"]["sass_ublkcp_g_s"] = bulk_store["probe_capacity"]
         print(json.dumps(results))
         return
@@ -1968,9 +2123,11 @@ def main(argv):
         lines[f"render{suffix}"], lines[f"train{suffix}"] = rinfo, tinfo
         del runs, train_run
         torch.cuda.empty_cache()
+    lines["scene"] = scene_phase(dev)
     lines["nerf_radiance"] = nerf_phase(dev)
     lines["probes"] = probes_phase(dev, results)
-    results["probe_row_copy"]["sass_ublkcp"] = bulk["probe_row_copy"]
+    for name in bulk:
+        results[name]["sass_ublkcp"] = bulk[name]
     results["probe_capacity"]["sass_ublkcp_g_s"] = bulk_store["probe_capacity"]
 
     kernels = []

@@ -14,12 +14,18 @@ K1-PE); its parameters come from
 ``--params`` (an ``.npz``
 written by ``params.save_params_npz``, e.g. from a JAX checkpoint) or from
 the port's own initialisation (``--init_seed``). The scene is the synthetic
-sphere. Runs on the card unless ``--device cpu``.
+sphere, or with ``--data_dir`` a scene directory under ``--data_root`` read
+by ``data.SceneDataset`` (``--img_res H W``, ``--if_hdr`` for EXR frames and
+the model's HDR output, PSNR then taken through the sRGB gamma;
+``--center_crop_type``): the split's frames through ``image_rays``. Runs on
+the card unless ``--device cpu``.
 
     python -m monosdf_torch.cli.eval --n_images 4 --img_res 64 --out_dir evaluation
     python -m monosdf_torch.cli.eval --grids --out_dir evaluation_grids
     python -m monosdf_torch.cli.eval --union --out_dir evaluation_union
     python -m monosdf_torch.cli.eval --sweep_pe --out_dir evaluation_pe
+    python -m monosdf_torch.cli.eval --union --data_root scenes --data_dir union_scene \
+        --img_res 64 64 --params trained_union.npz --out_dir evaluation_union
 """
 
 from __future__ import annotations
@@ -32,9 +38,11 @@ import os
 import numpy as np
 import torch
 
+from ..data.scene_dataset import DatasetConfig, SceneDataset
 from ..data.synthetic import make_synthetic_sphere_scene
 from ..device import resolve_device
 from ..eval.metrics import psnr
+from ..losses import srgb_gamma
 from ..models.fields import ImplicitNetConfig, RenderingNetConfig
 from ..models.monosdf import MonoSDFConfig, init_monosdf, render_rays
 from ..ops.chunking import chunked_apply
@@ -149,8 +157,9 @@ def bench_config(grids: bool, compute_dtype: str = "bfloat16") -> MonoSDFConfig:
 
 def model_config(args, compute_dtype: str = "bfloat16") -> MonoSDFConfig:
     """The model an entry point's flags name (``--union``, ``--grids`` or
-    the bench's MLP model), with ``--rgb_backend`` when given and
-    ``sweep_pe_in_kernel`` under ``--sweep_pe``."""
+    the bench's MLP model), with ``--rgb_backend`` when given,
+    ``sweep_pe_in_kernel`` under ``--sweep_pe`` and the HDR radiance
+    output (ReLU, ``rendering.if_hdr``) under ``--if_hdr``."""
     if args.union:
         cfg = union_codes_config(compute_dtype)
     else:
@@ -159,6 +168,8 @@ def model_config(args, compute_dtype: str = "bfloat16") -> MonoSDFConfig:
         cfg = dataclasses.replace(cfg, rgb_backend=args.rgb_backend)
     if args.sweep_pe:
         cfg = dataclasses.replace(cfg, sweep_pe_in_kernel=True)
+    if args.if_hdr:
+        cfg = dataclasses.replace(cfg, rendering=dataclasses.replace(cfg.rendering, if_hdr=True))
     return cfg
 
 
@@ -175,6 +186,51 @@ def add_model_args(ap):
     ap.add_argument("--sweep_pe", action="store_true",
                     help="the sampler sweeps on raw points, PE inside the kernel (K1-PE; MLP "
                          "models), as scripts/bench_step.py --sweep_pe")
+
+
+def add_data_args(ap):
+    """The scene flags of both entry points (``DatasetConfig``'s names)."""
+    ap.add_argument("--data_root", default="../data", help="the directory holding --data_dir")
+    ap.add_argument("--data_dir", default=None,
+                    help="a scene directory (scripts/make_synthetic_scene.py's layout); "
+                         "default: the synthetic sphere")
+    ap.add_argument("--img_res", type=int, nargs="+", default=[64],
+                    help="H W of the scene's images (the sphere: one size, square)")
+    ap.add_argument("--if_hdr", action="store_true",
+                    help="EXR frames, the model's HDR output and PSNR through the sRGB gamma")
+    ap.add_argument("--center_crop_type", default="no_crop")
+    ap.add_argument("--use_mask", action="store_true",
+                    help="the scene's ImMask/ masks weight the cue losses (the union confs')")
+    ap.add_argument("--n_images", type=int, default=4, help="views of the synthetic sphere")
+
+
+def dataset_config(args) -> DatasetConfig:
+    """The ``DatasetConfig`` of the scene flags (``--data_dir`` given; one
+    ``--img_res`` size is square)."""
+    H, W = (args.img_res * 2)[:2]
+    return DatasetConfig(data_dir=args.data_dir, img_res=(H, W), data_root=args.data_root,
+                         if_hdr=args.if_hdr, center_crop_type=args.center_crop_type,
+                         use_mask=args.use_mask)
+
+
+def sphere_res(args) -> int:
+    """The synthetic sphere's (square) image size from ``--img_res``."""
+    if len(args.img_res) > 1 and args.img_res[0] != args.img_res[1]:
+        raise ValueError(f"the synthetic sphere is square; --img_res {args.img_res}")
+    return args.img_res[0]
+
+
+def dataset_frames(ds: SceneDataset, device) -> list:
+    """The split's frames of a ``SceneDataset`` (``image_rays``) as
+    ``evaluate`` takes them: rays on ``device``, the frame's index and its
+    ground-truth rgb (numpy)."""
+    frames = []
+    for i in range(len(ds.frame_idx_list)):
+        im = ds.image_rays(i)
+        rays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in im["rays"].items()}
+        frames.append({"frame_idx": im["frame_idx"], "rays": rays, "rgb": im["gt"]["rgb"]})
+    return frames
 
 
 def scene_frames(scene: dict, device) -> list:
@@ -205,16 +261,27 @@ def render_image(model, cfg: MonoSDFConfig, rays: dict, split_n_pixels: int = 10
                          rays["rays_o"], rays["rays_d"], rays["depth_scale"], rays["pose"])
 
 
+def frame_psnr(cfg: MonoSDFConfig, pred: np.ndarray, gt: np.ndarray) -> float:
+    """PSNR of a rendered frame; with the HDR output (``rendering.if_hdr``)
+    of both images through the sRGB gamma, as monosdf_tpu/cli/eval.py:96-98."""
+    if cfg.rendering.if_hdr:
+        pred, gt = (srgb_gamma(torch.from_numpy(np.asarray(a, np.float32))).numpy()
+                    for a in (pred, gt))
+    return psnr(pred, gt)
+
+
 def evaluate(model, cfg: MonoSDFConfig, frames: list, split_n_pixels: int = 1024):
-    """Render every frame (with per-image codes, frame i with row i of
-    ``rendering.embeddings``); returns ([(frame, psnr)], [render dict])."""
+    """Render every frame (with per-image codes, frame ``frame_idx`` with
+    that row of ``rendering.embeddings``); returns ([(frame, psnr)],
+    [render dict])."""
     rows, renders = [], []
     for fr in frames:
         code = None
         if cfg.rendering.per_image_code:
             code = model.rendering.embeddings.detach()[fr["frame_idx"]]
         out = render_image(model, cfg, fr["rays"], split_n_pixels, code)
-        rows.append((fr["frame_idx"], psnr(out["rgb_values"].cpu().numpy(), fr["rgb"])))
+        pred = out["rgb_values"].cpu().numpy()
+        rows.append((fr["frame_idx"], frame_psnr(cfg, pred, fr["rgb"])))
         renders.append(out)
     return rows, renders
 
@@ -222,10 +289,9 @@ def evaluate(model, cfg: MonoSDFConfig, frames: list, split_n_pixels: int = 1024
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_model_args(ap)
+    add_data_args(ap)
     ap.add_argument("--params", default=None, help=".npz of a JAX parameter tree")
     ap.add_argument("--init_seed", type=int, default=0)
-    ap.add_argument("--n_images", type=int, default=4)
-    ap.add_argument("--img_res", type=int, default=64)
     ap.add_argument("--split_n_pixels", type=int, default=1024)
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--out_dir", default="evaluation")
@@ -236,8 +302,12 @@ def main(argv=None):
     model = init_monosdf(cfg, seed=args.init_seed, device=device)
     if args.params:
         load_jax_params(model, load_params_npz(args.params))
-    scene = make_synthetic_sphere_scene(n_images=args.n_images, img_res=args.img_res)
-    rows, _ = evaluate(model, cfg, scene_frames(scene, device), args.split_n_pixels)
+    if args.data_dir:
+        frames = dataset_frames(SceneDataset(dataset_config(args)), device)
+    else:
+        frames = scene_frames(make_synthetic_sphere_scene(n_images=args.n_images,
+                                                          img_res=sphere_res(args)), device)
+    rows, _ = evaluate(model, cfg, frames, args.split_n_pixels)
     for frame, p in rows:
         print(f"frame {frame}: psnr {p:.2f}")
     os.makedirs(args.out_dir, exist_ok=True)

@@ -18,14 +18,22 @@ over 150,000 steps), as ``bench.py``. Each step draws a fresh ray batch
 from the scene (numpy) and the sampler's and eikonal draws from a
 ``torch.Generator`` on the device, both seeded with 0; it prints loss,
 psnr and beta. The trained parameters are written to
-``--out`` as an ``.npz`` that ``cli/eval.py --params`` reads. Runs on the
-card unless ``--device cpu``. No checkpoints, config files or validation
-renders: the trainer's other features come with a later slice.
+``--out`` as an ``.npz`` that ``cli/eval.py --params`` reads. The scene is
+the synthetic sphere, or with ``--data_dir`` a scene directory under
+``--data_root`` (``data.SceneDataset``: ``pixel_rays`` of its split,
+``--img_res H W``, ``--center_crop_type``; ``--if_hdr``: EXR frames, the
+model's HDR output and the rgb loss through the sRGB gamma, as
+``confs/synth_union_hdr.conf``). Runs on the card unless ``--device cpu``.
+No checkpoints, config files or validation renders: the trainer's other
+features come with a later slice.
 
     python -m monosdf_torch.cli.train --steps 20 --out trained.npz
     python -m monosdf_torch.cli.train --grids --steps 20 --out trained_grids.npz
     python -m monosdf_torch.cli.train --union --steps 20 --out trained_union.npz
     python -m monosdf_torch.cli.train --sweep_pe --steps 20 --out trained_pe.npz
+    python -m monosdf_torch.scripts.make_synthetic_scene scenes --shape union --n 4 --res 64
+    python -m monosdf_torch.cli.train --union --data_root scenes --data_dir union_scene \
+        --img_res 64 64 --steps 20 --out trained_union.npz
 """
 
 from __future__ import annotations
@@ -35,13 +43,15 @@ import argparse
 import numpy as np
 import torch
 
+from ..data.scene_dataset import SceneDataset
 from ..data.synthetic import make_synthetic_sphere_scene, sample_ray_batch
 from ..device import resolve_device
 from ..losses import LossConfig
 from ..models.monosdf import init_monosdf
 from ..params import load_jax_params, load_params_npz, params_to_tree, save_params_npz
 from ..train import OptimConfig, make_optimizer, make_train_step
-from .eval import add_model_args, bench_config, model_config
+from .eval import (add_data_args, add_model_args, bench_config, dataset_config, model_config,
+                   sphere_res)
 
 
 def ray_batches(scene: dict, rng: np.random.Generator, n: int, num_rays: int, device) -> list:
@@ -58,22 +68,31 @@ def ray_batches(scene: dict, rng: np.random.Generator, n: int, num_rays: int, de
 
 
 def make_trainer(model, cfg):
-    """The bench's training step of ``model``: ``LossConfig()`` and Adam
-    (``OptimConfig()``, in grid mode with its parameter groups) over its
-    parameters."""
+    """The bench's training step of ``model``: ``LossConfig()`` (with the HDR
+    output, ``rendering.if_hdr``, the rgb loss through the sRGB gamma) and
+    Adam (``OptimConfig()``, in grid mode with its parameter groups) over
+    its parameters."""
     ocfg = OptimConfig(grid_mode=cfg.implicit.use_grid)
-    return make_train_step(cfg, LossConfig(), make_optimizer(ocfg, model.named_parameters()))
+    return make_train_step(cfg, LossConfig(if_gamma_loss=cfg.rendering.if_hdr),
+                           make_optimizer(ocfg, model.named_parameters()))
+
+
+def load_scene(args) -> dict:
+    """The flat per-ray arrays the steps draw from: ``pixel_rays()`` of the
+    scene directory ``--data_dir`` names, else the synthetic sphere."""
+    if args.data_dir:
+        return SceneDataset(dataset_config(args)).pixel_rays()
+    return make_synthetic_sphere_scene(n_images=args.n_images, img_res=sphere_res(args))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_model_args(ap)
+    add_data_args(ap)
     ap.add_argument("--params", default=None, help=".npz of a JAX parameter tree")
     ap.add_argument("--init_seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--rays", type=int, default=1024, help="rays per step")
-    ap.add_argument("--n_images", type=int, default=4)
-    ap.add_argument("--img_res", type=int, default=64)
     ap.add_argument("--compute_dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--out", default="trained_params.npz")
@@ -85,7 +104,7 @@ def main(argv=None):
     if args.params:
         load_jax_params(model, load_params_npz(args.params))
     step = make_trainer(model, cfg)
-    scene = make_synthetic_sphere_scene(n_images=args.n_images, img_res=args.img_res)
+    scene = load_scene(args)
     rng = np.random.default_rng(0)
     generator = torch.Generator(device=device).manual_seed(0)
     history = []

@@ -22,7 +22,11 @@ with these five:
   bulk copy, a ring of ``stages`` per CTA with every thread issuing its own
   copies, the CTAs' partials added by the last CTA in the same launch.
 - **M** (``strided_permute``, ``csrc/probe_strided_permute.cu``; :936): the
-  sum over beta of ``x[beta::8][:n] @ P``, the product in the kernel.
+  sum over beta of ``x[beta::8][:n] @ P``, the product in the kernel: a
+  warp an output row, each thread 4 lanes of it over the nine beta rows
+  (36 float32 FMA chains, each beta's from 0 and added in beta order), x's
+  window and P staged in shared memory by bulk copies, P in four chunks of
+  k on their own barriers.
 - **C** (``capacity``, ``csrc/probe_capacity.cu``; :495 and :853): a
   (rows, 128) output held whole in one CTA's shared memory, zeros with
   ``[0, 0] = 1``, written out by bulk stores; a size above the card's
@@ -281,8 +285,10 @@ def strided_permute_plain(x, P, n_out: int = 1024):
 
 def strided_permute(x, P, n_out: int = 1024):
     """(n_out, 128) float32: sum_{beta < 9} x[beta::8][:n_out] @ P, x
-    (>= 8 n_out + 1, 128) and P (128, 128) float32; on the card the product
-    runs in the kernel."""
+    (>= 8 n_out + 1, 128) and P (128, 128) float32, both 16-byte aligned;
+    on the card the product runs in the kernel, each beta's dot products a
+    float32 FMA chain over k from 0, added in beta order (the same bits for
+    any P)."""
     if x.device.type == "cpu":
         return strided_permute_plain(x, P, n_out)
     dev = x.device
@@ -290,7 +296,11 @@ def strided_permute(x, P, n_out: int = 1024):
         raise ValueError(f"x has {x.shape[0]} rows; {n_out} outputs read {8 * n_out + 1}")
     build.require(x, "x", torch.float32, (x.shape[0], LANES), dev)
     build.require(P, "P", torch.float32, (LANES, LANES), dev)
+    if x.data_ptr() % 16 or P.data_ptr() % 16:
+        raise ValueError("x and P must be 16-byte aligned (the kernel copies them in bulk)")
     out = torch.empty(n_out, LANES, dtype=torch.float32, device=dev)
+    if n_out == 0:
+        return out
     lib, f = _lib(PERMUTE, "probe_strided_permute_launch", (_c, _c, _i, _c, _c))
     err = f(build.ptr(x), build.ptr(P), n_out, build.ptr(out), build.stream_ptr(dev))
     build.check(lib, PERMUTE, err)

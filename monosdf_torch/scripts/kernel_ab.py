@@ -20,8 +20,8 @@ per call and the host us per call. The inputs:
   atomics K5 issues (``k5_atomics``), which depend on the points alone.
 
 ``--probes`` times G (the dynamic gather), S (the run scatter), R (the
-per-row bulk copy) and C (the capacity probe) instead (``--kernels``
-picks some), at the smoke's probe cases (``PROBE_CASES``: inputs from the
+per-row bulk copy), M (the strided permute) and C (the capacity probe)
+instead (``--kernels`` picks some), at the smoke's probe cases (``PROBE_CASES``: inputs from the
 checkout's own probe waves, seeded random values in place of the probe's
 constant ones): a digest and whether a second call gives the same bits,
 the error against the plain version over the smoke's bar, wall, device
@@ -35,7 +35,10 @@ process (``wave_ms_first_pass``); for G's staged axis-0 cases (this
 checkout's column slices) the device ms at 0 and 1 reps, staged at the
 case's width, beside the case's own (the staging and the index and
 output traffic apart from the reps' reads); for C the device ms over its
-ladder of sizes (one CTA: one SM's fill and store rate).
+ladder of sizes (one CTA: one SM's fill and store rate); for M the same
+again with a dense random P in place of the permutation (``dense``: its
+digest, rerun bit-equality, error against the plain version over
+``1e-5 * sum |x| |P|`` entry by entry, device ms).
 ``--probes --sweep`` also times R over its ring depths, S's atomic
 pass over its span lengths and G's staged axis-0 cases over the column
 slice widths that fit (``stages``, ``span``, ``width``: keywords this
@@ -123,7 +126,7 @@ def _sweep_values(cs, kernel: str, inputs: dict, where: str, dev) -> tuple:
 
 
 def probes_ab(cs, dev, reps: int, sweep: bool = False, kernels=None) -> dict:
-    """G, S, R and C (or ``kernels``) at the smoke's probe cases (see the
+    """G, S, R, M and C (or ``kernels``) at the smoke's probe cases (see the
     module's docstring)."""
     from monosdf_torch.scripts import probe_hash_primitives as probe
 
@@ -165,6 +168,8 @@ def probes_ab(cs, dev, reps: int, sweep: bool = False, kernels=None) -> dict:
                 at = lambda r: lambda: wrap(**{**inputs, "reps": r}, width=w)
                 entry["device_ms_by_reps"] = {r: cs.device_ms(at(r), kernel, reps)
                                               for r in (0, 1)}
+        if kernel == "probe_strided_permute":
+            entry["dense"] = strided_permute_dense(cs, wrap, plain, inputs, gen, reps)
         if kernel == "probe_capacity":
             at = lambda kb: lambda: wrap(rows=kb * 2, device=inputs["device"])
             entry["device_ms_by_kb"] = {kb: cs.device_ms(at(kb), kernel, reps)
@@ -178,6 +183,19 @@ def probes_ab(cs, dev, reps: int, sweep: bool = False, kernels=None) -> dict:
                               for v in values}
         out[case] = entry
     return out
+
+
+def strided_permute_dense(cs, wrap, plain, inputs: dict, gen, reps: int) -> dict:
+    """M on the case's x with a dense random P: the digest, whether a
+    second call gives the same bits, the error against the plain version
+    over 1e-5 * sum_beta |x| |P| entry by entry, and the device ms."""
+    dense = {**inputs, "P": torch.randn(128, 128, generator=gen, device=inputs["x"].device)}
+    first, second = wrap(**dense), wrap(**dense)
+    mag = plain(**{**dense, "x": dense["x"].abs(), "P": dense["P"].abs()})
+    ratio = float(((first - plain(**dense)).abs() / (1e-5 * mag).clamp_min(1e-30)).max())
+    return {"digest": digest(first), "rerun_bit_equal": cs.bits_equal(first, second),
+            "err_over_tolerance": ratio,
+            "device_ms": cs.device_ms(lambda: wrap(**dense), "probe_strided_permute", reps)}
 
 
 def profiler_check(cs, fn, kernel: str, n: int, reps: int) -> dict:
@@ -195,7 +213,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=None)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--probes", action="store_true", help="time the probe kernels G, S, R, C only")
+    ap.add_argument("--probes", action="store_true", help="time the probe kernels G, S, R, M, C only")
     ap.add_argument("--kernels", default="",
                     help="with --probes: a comma list of them (probe_gather, ...)")
     ap.add_argument("--sweep", action="store_true",

@@ -1190,6 +1190,33 @@ def test_probe_strided_permute_and_capacity_match_plain(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_out,extra", [(1, 0), (7, 3), (1000, 0), (1024, 0), (4096, 301),
+                                         (8192, 0)])
+def test_probe_strided_permute_over_tiles_and_dense_p(dev, n_out, extra):
+    """M over ragged last tiles (1, 7, 1000 outputs against 8 rows a CTA)
+    and more CTAs than SMs (4096, 8192), x longer than 8 n_out + 1 where
+    ``extra`` > 0: with the permutation exactly the plain version; with a
+    dense random P within 1e-5 * sum_beta |x| |P| of it entry by entry (float32
+    sums in another order); one launch a call, a second call bit-equal."""
+    from monosdf_torch.kernels import probes
+
+    gen = torch.Generator(device=dev).manual_seed(n_out)
+    x = torch.randn(8 * n_out + 1 + extra, 128, generator=gen, device=dev)
+    for P in (probes.lane_permutation(37, dev), torch.randn(128, 128, generator=gen, device=dev)):
+        before = dict(build.launches)
+        out = probes.strided_permute(x, P, n_out)
+        torch.cuda.synchronize()
+        assert _launched(before) == {"probe_strided_permute": 1} and out.shape == (n_out, 128)
+        assert torch.equal(out, probes.strided_permute(x, P, n_out))
+        ref = probes.strided_permute_plain(x, P, n_out)
+        if P.count_nonzero() == 128:
+            assert torch.equal(out, ref)
+        else:
+            mag = probes.strided_permute_plain(x.abs(), P.abs(), n_out)
+            assert bool(((out - ref).abs() <= 1e-5 * mag).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ctas,n,stages", [
     (1, 1000, None), (1, 4097, 32), (7, 1000, None), (7, 7, None), (132, 65_536, None),
     (132, 4097, 384), (264, 65_536, None), (264, 264, 64)])

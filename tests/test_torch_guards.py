@@ -1,6 +1,7 @@
 """The port's import and device guards: ``monosdf_torch`` (its bench
-``monosdf_torch.bench`` and scripts included) and ``chip_smoke.py`` import neither JAX
-nor the JAX package, and an entry point
+``monosdf_torch.bench``, data layer and scripts included) and ``chip_smoke.py`` import
+neither JAX nor the JAX package, nor cv2 or PIL (the card's machine has neither), and an
+entry point
 needs a CUDA device unless the caller asks for the CPU. This file imports no
 JAX itself."""
 
@@ -21,8 +22,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import monosdf_torch.kernels.sdf_grad_grid, monosdf_torch.kernels.radiance_split\n"
         "import monosdf_torch.kernels.radiance_mlp, monosdf_torch.kernels.probes\n"
         "import monosdf_torch.scripts.probe_hash_primitives, monosdf_torch.bench\n"
-        "import monosdf_torch.scripts.rounding_parity\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'monosdf_tpu')]\n"
+        "import monosdf_torch.scripts.rounding_parity, monosdf_torch.scripts.kernel_ab\n"
+        "import monosdf_torch.data.exr, monosdf_torch.data.png, monosdf_torch.data.scene_dataset\n"
+        "import monosdf_torch.scripts.make_synthetic_scene\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'monosdf_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=str(REPO))
