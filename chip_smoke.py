@@ -83,11 +83,27 @@ reads from disk. Phases (any failure exits non-zero):
    output and gamma loss): 3 + 5 steps and one view, its PSNR through the
    sRGB gamma; generation, load, step and render times; fails where jax,
    monosdf_tpu, cv2 or PIL was imported;
-10. the nerf radiance check: fields.rendering_apply_pallas in nerf mode with
+10. the meshes (cli/eval.py's export: meshing.extract_mesh on
+   meshing.mesh_sdf_fn, marched by the native marcher built from
+   monosdf_torch/native): the union model phase 9 trained, at resolution
+   512 over (-1.1, 1.1) in crops of 128 (the point pyramid; its SDF grid
+   through K1 at float32, one launch a call of the SDF callable), and the
+   grid model at 256 (K6 and K1, one launch each a call), launches counted
+   from 0 (the order references 0); each extraction again with the plain
+   versions (face counts within 0.1%, the symmetric mean nearest-vertex
+   distance within 1e-2 of a cell), one dense crop's SDF grid at K1's
+   float32 bar (and a grid off by that bar, marched, beyond the vertex
+   bar), K1's float32 time on one chunk of 131,072 points; the PLY's
+   write time and bytes; the union scene's analytic SDF meshed at 512 on
+   the card, every vertex within 0.1 of a cell of its zero set, and the
+   union model's Chamfer, F-score at 0.05 and normal consistency against
+   it (20,000 samples a mesh; no bar); fails where jax, monosdf_tpu, cv2 or
+   PIL was imported;
+11. the nerf radiance check: fields.rendering_apply_pallas in nerf mode with
    codes (K8b on [view PE | features | code], 315 wide) at 100,352 samples,
    forward and backward through autograd, against rendering_apply, in
    float32 and bf16 (K8b and its backward once each);
-11. the probes (monosdf_torch/scripts/probe_hash_primitives.py, the port
+12. the probes (monosdf_torch/scripts/probe_hash_primitives.py, the port
    of scripts/probe_hash_primitives.py): its wave functions at full size,
    launches counted from 0, on one case of each Pallas site (PROBE_CASES:
    G, S, R, M, C, each launched 6 times per case), then each kept output
@@ -98,11 +114,11 @@ reads from disk. Phases (any failure exits non-zero):
    queued back to back) and host time, R's copy floor (its rows' bytes at
    3.35 TB/s) and G's shared-memory floor (its reps' reads at 32 a clock
    on each SM);
-12. print a ``render``, a ``train``, a ``render_pe``, a ``train_pe``, a
+13. print a ``render``, a ``train``, a ``render_pe``, a ``train_pe``, a
    ``render_grids``, a ``train_grids``,
    a ``render_codes``, a ``train_codes``, a ``render_codes_split``, a
-   ``train_codes_split``, a ``scene``, a ``nerf_radiance`` and a ``probes``
-   JSON line,
+   ``train_codes_split``, a ``scene``, a ``mesh``, a ``nerf_radiance`` and a
+   ``probes`` JSON line,
    the ``kernels`` JSON line, the card line (nvidia-smi's name and power
    limit), and last the result line.
 """
@@ -1629,7 +1645,8 @@ def scene_phase(dev):
     frame's PSNR. Then the same with ``--hdr`` (EXR frames, ``if_hdr``: the
     ReLU output and the gamma rgb loss): SCENE_HDR_STEPS timed steps and one
     view, its PSNR through the sRGB gamma. Fails where a module of FOREIGN
-    was imported. Returns the ``scene`` line."""
+    was imported. Returns the ``scene`` line and the LDR model with its
+    config."""
     import tempfile
 
     from monosdf_torch.cli.eval import dataset_frames, evaluate, union_codes_config
@@ -1732,6 +1749,8 @@ def scene_phase(dev):
                 "rays_per_s": CHUNK / ms_step * 1e3, "loss": losses, "render_views": len(frames),
                 "render_chunks": chunks, "render_s": t_render, "psnr": psnrs,
                 "psnr_through_gamma": hdr}
+            if not hdr:
+                kept = (model, cfg)  # the mesh phase meshes the LDR model
             del model, step, batches
             torch.cuda.empty_cache()
     foreign = sorted({m.split(".")[0] for m in sys.modules} & set(FOREIGN))
@@ -1739,11 +1758,251 @@ def scene_phase(dev):
     if foreign:
         fail(f"the scene phase imported {foreign}")
     line["launches"] = total
+    return line, kept
+
+
+# the mesh phase: the export of monosdf_tpu/train/trainer.py export_mesh at
+# the schema's plot_resolution and grid_boundary (monosdf_tpu/config/
+# schema.py:32-33, confs/synth_union_quality.conf:19) in crops of 128; the
+# grid model at MESH_RES_GRID
+MESH_RES, MESH_RES_GRID, MESH_CROP, MESH_BOUNDARY = 512, 256, 128, (-1.1, 1.1)
+# kernel mesh vs the plain versions' mesh: face counts within MESH_FACES_RTOL,
+# the symmetric mean nearest-vertex distance within MESH_VERT_CELLS cells
+MESH_FACES_RTOL, MESH_VERT_CELLS = 1e-3, 1e-2
+# the analytic union surface's mesh: every vertex within this many cells of
+# the zero set (linear interpolation along a tet edge errs by ~h^2 k / 8)
+MESH_ANALYTIC_CELLS = 0.1
+# surface samples of each mesh for mesh_metrics_3d (the Replica protocol's
+# 200,000 cut to 20,000: the KD-tree queries between two meshes ~0.1 apart
+# took 129 s of the card host's time at 200,000)
+MESH_METRIC_SAMPLES = 20_000
+
+
+def _counted(sdf_fn):
+    """sdf_fn with a count of its calls (``.calls[0]``) and its device."""
+    calls = [0]
+
+    def fn(pts):
+        calls[0] += 1
+        return sdf_fn(pts)
+
+    fn.calls, fn.device = calls, getattr(sdf_fn, "device", None)
+    return fn
+
+
+def _vertex_dist(a, b) -> float:
+    """The symmetric mean nearest-vertex distance of two vertex sets."""
+    from scipy.spatial import cKDTree
+
+    return 0.5 * float(cKDTree(b).query(a)[0].mean() + cKDTree(a).query(b)[0].mean())
+
+
+def _mesh_model(dev, model, cfg, res: int, tag: str, tmp: str, per_call: dict):
+    """One model's mesh: extract_mesh of mesh_sdf_fn at ``res`` in crops of
+    MESH_CROP, launches counted from 0 (``per_call``: each kernel's launches
+    a call of the SDF callable); the PLY written and read back; the same
+    extraction with each kernel's plain version in its wrapper's place
+    (faces, vertices); one dense crop's SDF grid both ways at K1's float32
+    bar, and a control: the plain grid moved by that bar, marched, shows
+    the vertex-distance bar would catch a kernel wrong by it. Returns
+    (the info, the launches, verts, faces)."""
+    from monosdf_torch.kernels import build
+    from monosdf_torch.kernels import sdf_mlp as k1
+    from monosdf_torch.meshing import extract_mesh, mesh_sdf_fn, read_ply, write_ply
+    from monosdf_torch.meshing.extract import sdf_grid_eval
+    from monosdf_torch.models import fields
+    from monosdf_torch.native import lib_path, marching_tetrahedra_native
+    from monosdf_torch.ops.embedder import positional_encoding
+
+    h = (MESH_BOUNDARY[1] - MESH_BOUNDARY[0]) / res
+    kw = dict(resolution=res, grid_boundary=MESH_BOUNDARY, crop_n=MESH_CROP)
+    sdf = _counted(mesh_sdf_fn(model, cfg))
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    stats, t0 = {}, time.perf_counter()
+    verts, faces = extract_mesh(sdf, stats=stats, **kw)
+    torch.cuda.synchronize()
+    t_extract = time.perf_counter() - t0
+    counts, calls = launch_counts(), sdf.calls[0]
+    expect = {k: v * calls for k, v in {**_NONE, **per_call}.items()}
+    path = os.path.join(tmp, f"surface_{tag}_{res}.ply")
+    t0 = time.perf_counter()
+    write_ply(path, verts, faces)
+    t_ply = time.perf_counter() - t0
+    v_back, f_back = read_ply(path)
+    print(f"mesh {tag}: {res} in crops of {MESH_CROP}, {calls} calls of the SDF, launches "
+          f"{_nonzero(counts)} (expected {_nonzero(expect)}); {stats['points']} points "
+          f"({stats['points'] / (res + 1) ** 3:.4f} of the dense {res + 1}^3) in "
+          f"{stats['eval_s']:.3f} s, marched ({stats['marcher']}) in {stats['march_s']:.3f} s, "
+          f"{len(verts)} verts, {len(faces)} faces; PLY {os.path.getsize(path)} bytes in "
+          f"{t_ply:.3f} s", flush=True)
+    if counts != expect:
+        fail(f"mesh {tag}: launch counts {counts} != {expect}")
+    if not len(faces) or not np.isfinite(verts).all() or faces.max() >= len(verts):
+        fail(f"mesh {tag}: an empty mesh, a vertex not finite or a face off the vertices")
+    if not (np.array_equal(v_back, verts) and np.array_equal(f_back, faces)):
+        fail(f"mesh {tag}: the PLY does not read back")
+
+    use_plain_versions(True)
+    try:
+        plain_stats = {}
+        vp, fp = extract_mesh(sdf, stats=plain_stats, **kw)
+    finally:
+        use_plain_versions(False)
+    faces_rel = abs(len(faces) - len(fp)) / len(fp)
+    dist_cells = _vertex_dist(verts, vp) / h
+
+    # one dense crop through the surface: the crop holding the grid's point nearest
+    # to the first vertex
+    per = res // max(1, -(-res // MESH_CROP))
+    coords = np.linspace(*MESH_BOUNDARY, res + 1, dtype=np.float32)
+    lo = [int(np.clip((c - MESH_BOUNDARY[0]) / h, 0, res - 1)) // per * per for c in verts[0]]
+    axes = [coords[i:i + per + 1] for i in lo]
+    grid_k = sdf_grid_eval(sdf, *axes)
+    use_plain_versions(True)
+    try:
+        grid_p = sdf_grid_eval(sdf, *axes)
+    finally:
+        use_plain_versions(False)
+    atol, rtol = TOL["float32"]
+    bar = atol + rtol * float(np.abs(grid_p).max())
+    err = float(np.abs(grid_k - grid_p).max())
+    origin, spacing = np.array([a[0] for a in axes], np.float32), np.float32(h)
+    (vk, fk), (vq, fq) = (marching_tetrahedra_native(g, origin, spacing)
+                          for g in (grid_k, grid_p))
+    vc, fc = marching_tetrahedra_native(grid_p + np.float32(bar), origin, spacing)
+    crop = {"lo": lo, "points": int(grid_k.size), "max_abs_err": err, "bar": bar,
+            "vertex_dist_cells": _vertex_dist(vk, vq) / h,
+            "faces_rel_diff": abs(len(fk) - len(fq)) / max(len(fq), 1),
+            "control_vertex_dist_cells": _vertex_dist(vc, vq) / h,
+            "control_faces_rel_diff": abs(len(fc) - len(fq)) / max(len(fq), 1)}
+    print(f"mesh {tag} vs plain versions: faces {len(faces)} / {len(fp)} (rel diff "
+          f"{faces_rel:.2e}, bar {MESH_FACES_RTOL}); vertex distance {dist_cells:.3e} cells (bar "
+          f"{MESH_VERT_CELLS}); dense crop at {lo}: max abs err {err:.3e} (bar {bar:.3e}), "
+          f"vertex distance {crop['vertex_dist_cells']:.3e} cells; a grid off by the bar: "
+          f"{crop['control_vertex_dist_cells']:.3e} cells, faces rel diff "
+          f"{crop['control_faces_rel_diff']:.2e}", flush=True)
+    if (faces_rel > MESH_FACES_RTOL or dist_cells > MESH_VERT_CELLS or err > bar
+            or crop["control_vertex_dist_cells"] <= MESH_VERT_CELLS):
+        fail(f"mesh {tag}: the kernel mesh misses the plain versions' (or the vertex bar would "
+             "not catch a grid off by K1's float32 bar)")
+
+    # K1 alone on one chunk of the crop's points, float32 (the mesh's K1 call)
+    pts = torch.from_numpy(np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)[:131072]
+                           ).to(dev)
+    with torch.no_grad():
+        ws, bs, packed = fields.sweep_weights(model.implicit, cfg.implicit)
+        inp = positional_encoding(pts, cfg.implicit.multires)
+        if cfg.implicit.use_grid:
+            inp = torch.cat([inp, fields._grid_features(model.implicit, cfg.implicit, pts,
+                                                        fields.grid_table(model.implicit,
+                                                                          cfg.implicit))], -1)
+        skip = tuple(cfg.implicit.skip_in)
+        out = k1.sdf_mlp(ws, bs, inp, skip, None, packed)
+        k1_ms = cuda_ms(lambda: k1.sdf_mlp(ws, bs, inp, skip, None, packed))
+        k1_plain_ms = cuda_ms(lambda: k1.sdf_mlp_plain(ws, bs, inp, skip, None))
+    k1_bound, k1_by = bound_ms(mlp_flops(ws, inp.shape[0]),
+                               nbytes(inp, out, *ws, *bs), H100_F32_FLOPS)
+    info = {
+        "resolution": res, "crop_n": MESH_CROP, "grid_boundary": list(MESH_BOUNDARY),
+        "cell": h, "marcher": stats["marcher"], "native_library": lib_path().name,
+        "sdf_calls": calls, "launches": _nonzero(counts), "points": stats["points"],
+        "points_dense": (res + 1) ** 3, "points_share": stats["points"] / (res + 1) ** 3,
+        "crops": stats["crops"], "crops_marched": stats["crops_marched"],
+        "eval_s": stats["eval_s"], "march_s": stats["march_s"], "extract_s": t_extract,
+        "verts": len(verts), "faces": len(faces), "ply_bytes": os.path.getsize(path),
+        "ply_write_s": t_ply,
+        "plain": {"verts": len(vp), "faces": len(fp), "eval_s": plain_stats["eval_s"],
+                  "march_s": plain_stats["march_s"]},
+        "faces_rel_diff": faces_rel, "faces_bar": MESH_FACES_RTOL,
+        "vertex_dist_cells": dist_cells, "vertex_dist_bar_cells": MESH_VERT_CELLS,
+        "dense_crop": crop,
+        "k1_float32_chunk": {"points": inp.shape[0], "d0": inp.shape[1], "ms": k1_ms,
+                             "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by},
+    }
+    return info, counts, verts, faces
+
+
+def mesh_phase(dev, union_model, union_cfg):
+    """Phase 10: meshes through cli/eval.py's export (meshing.extract_mesh on
+    meshing.mesh_sdf_fn, the native marcher): the union-codes model phase 9
+    trained on the union scene at MESH_RES over MESH_BOUNDARY in crops of
+    MESH_CROP (the pyramid; the grid SDF through K1 at float32, one launch a
+    call of the SDF callable, K2f's and K4's order references 0), and the
+    grid model (bench_grids_config, seeded init plus the smoke's
+    perturbation) at MESH_RES_GRID (K6 and K1, one launch each a call); each
+    against the same extraction with the plain versions (_mesh_model); then
+    the union scene's analytic SDF (make_synthetic_scene.union_sdf_torch on
+    the card) meshed at MESH_RES, every vertex within MESH_ANALYTIC_CELLS
+    cells of the zero set, and Chamfer, F-score at 0.05 and normal
+    consistency of the union model's mesh against it (mesh_metrics_3d on
+    MESH_METRIC_SAMPLES samples a mesh; no bar). Fails where a module of
+    FOREIGN was imported. Returns the ``mesh`` line."""
+    import tempfile
+
+    from monosdf_torch.cli.eval import bench_grids_config
+    from monosdf_torch.eval.metrics import mesh_metrics_3d
+    from monosdf_torch.meshing import extract_mesh
+    from monosdf_torch.native import get_native_lib
+    from monosdf_torch.scripts.make_synthetic_scene import union_sdf, union_sdf_torch
+
+    t_phase = time.perf_counter()
+    line, total = {}, dict.fromkeys(launch_counts(), 0)
+    # the native marcher is built (g++) before the timed extractions
+    t0 = time.perf_counter()
+    get_native_lib()
+    line["native_build_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        line["union"], counts, verts, faces = _mesh_model(dev, union_model, union_cfg, MESH_RES,
+                                                          "union", tmp, {"sdf_mlp": 1})
+        for k, v in counts.items():
+            total[k] += v
+        gcfg = bench_grids_config("bfloat16")
+        gmodel = perturbed_model(gcfg, dev)
+        line["grid"], counts, _, _ = _mesh_model(dev, gmodel, gcfg, MESH_RES_GRID, "grid", tmp,
+                                                 {"sdf_mlp": 1, "hash_encode": 1})
+        for k, v in counts.items():
+            total[k] += v
+        del gmodel
+        torch.cuda.empty_cache()
+
+    def analytic(pts):
+        return union_sdf_torch(pts)
+
+    stats, h = {}, (MESH_BOUNDARY[1] - MESH_BOUNDARY[0]) / MESH_RES
+    vg, fg = extract_mesh(analytic, resolution=MESH_RES, grid_boundary=MESH_BOUNDARY,
+                          crop_n=MESH_CROP, device=dev, stats=stats)
+    worst = float(np.abs(union_sdf(vg.astype(np.float64))).max()) / h
+    t0 = time.perf_counter()
+    metrics = mesh_metrics_3d(verts, faces, vg, fg, n_samples=MESH_METRIC_SAMPLES,
+                              threshold=0.05)
+    t_metrics = time.perf_counter() - t0
+    line["analytic"] = {"resolution": MESH_RES, "verts": len(vg), "faces": len(fg),
+                        "points": stats["points"], "eval_s": stats["eval_s"],
+                        "march_s": stats["march_s"], "max_abs_sdf_cells": worst,
+                        "bar_cells": MESH_ANALYTIC_CELLS}
+    line["union"]["vs_analytic"] = {**metrics, "threshold": 0.05, "samples": MESH_METRIC_SAMPLES,
+                                    "seconds": t_metrics}
+    print(f"mesh analytic union: {len(vg)} verts, {len(fg)} faces, max |union_sdf(v)| "
+          f"{worst:.3e} cells (bar {MESH_ANALYTIC_CELLS}); the union model's mesh against it: "
+          f"chamfer {metrics['chamfer']:.5f}, F-score@0.05 {metrics['f_score']:.4f}, normal "
+          f"consistency {metrics['normal_consistency']:.4f} (no bar) in {t_metrics:.2f} s",
+          flush=True)
+    if worst > MESH_ANALYTIC_CELLS or not len(fg):
+        fail("mesh analytic: a vertex lies off the union scene's zero set")
+    foreign = sorted({m.split(".")[0] for m in sys.modules} & set(FOREIGN))
+    print(f"mesh: modules of {list(FOREIGN)} imported: {foreign}; the native marcher built in "
+          f"{line['native_build_s']:.2f} s; the phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if foreign:
+        fail(f"the mesh phase imported {foreign}")
+    line["seconds"] = time.perf_counter() - t_phase
+    line["launches"] = total
     return line
 
 
 def nerf_phase(dev):
-    """Phase 10: fields.rendering_apply_pallas in nerf mode with codes (K8b
+    """Phase 11: fields.rendering_apply_pallas in nerf mode with codes (K8b
     on h0 = [view PE | features | code], 27 + 256 + 32 = 315 wide) at the
     step's 100,352 samples, forward and backward through autograd, launches
     counted from 0, against rendering_apply (the plain path through
@@ -1850,7 +2109,7 @@ PROBE_PRIMARY = {"probe_gather": "pl_dyngather_ax0_8192x128",
 # sums of the same terms in another order (the atomics' order changes from
 # run to run); G, M (0/1 permutation) and C exactly
 PROBE_SUM_RTOL = 1e-5
-# the probe kernels whose calls phase 11 splits into device and host time
+# the probe kernels whose calls phase 12 splits into device and host time
 SPLIT_KERNELS = ("probe_gather", "probe_scatter_rows", "probe_row_copy", "probe_strided_permute",
                  "probe_capacity")
 
@@ -1972,7 +2231,7 @@ def _probe_library(kernel: str, inputs: dict):
 
 
 def probes_phase(dev, results):
-    """Phase 11: the probe waves (monosdf_torch/scripts/probe_hash_primitives.py)
+    """Phase 12: the probe waves (monosdf_torch/scripts/probe_hash_primitives.py)
     at full size on PROBE_CASES, launches counted from 0 and checked exactly
     (LAUNCHES_PER_CASE per case), each kept output against its plain
     version, each kernel again on random inputs of the case's shapes; per
@@ -2123,7 +2382,10 @@ def main(argv):
         lines[f"render{suffix}"], lines[f"train{suffix}"] = rinfo, tinfo
         del runs, train_run
         torch.cuda.empty_cache()
-    lines["scene"] = scene_phase(dev)
+    lines["scene"], (union_model, union_cfg) = scene_phase(dev)
+    lines["mesh"] = mesh_phase(dev, union_model, union_cfg)
+    del union_model
+    torch.cuda.empty_cache()
     lines["nerf_radiance"] = nerf_phase(dev)
     lines["probes"] = probes_phase(dev, results)
     for name in bulk:

@@ -1,7 +1,13 @@
-"""Render every view of a scene and report PSNR: the counterpart of the
-``--eval_rendering`` branch of monosdf_tpu/cli/eval.py.
+"""Export the mesh of a model, then render every view of a scene and report
+PSNR: the counterpart of monosdf_tpu/cli/eval.py (its mesh export and its
+``--eval_rendering`` branch).
 
-Each frame is rendered in chunks of ``split_n_pixels`` rays through
+The mesh is the SDF's zero set at ``--resolution`` over the schema's
+``grid_boundary`` (-1.1, 1.1), written to ``<out_dir>/surface_<res>.ply``
+(``meshing.extract_mesh`` on ``meshing.mesh_sdf_fn``: on the card through
+K1, and K6 in grid mode; marched by the native marcher), in the scene's
+world coordinates with ``--world_space`` and ``--data_dir`` (its
+``scale_mat``). Each frame is rendered in chunks of ``split_n_pixels`` rays through
 ``models.render_rays`` (eval); per-frame PSNR is printed and written to
 ``<out_dir>/psnr.csv``. The model is the bench's ScanNet-MLP configuration
 (``bench_mlp_config``), with ``--grids`` the hash-grid model of
@@ -25,7 +31,7 @@ the card unless ``--device cpu``.
     python -m monosdf_torch.cli.eval --union --out_dir evaluation_union
     python -m monosdf_torch.cli.eval --sweep_pe --out_dir evaluation_pe
     python -m monosdf_torch.cli.eval --union --data_root scenes --data_dir union_scene \
-        --img_res 64 64 --params trained_union.npz --out_dir evaluation_union
+        --img_res 64 64 --params trained_union.npz --resolution 512 --out_dir evaluation_union
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from ..data.synthetic import make_synthetic_sphere_scene
 from ..device import resolve_device
 from ..eval.metrics import psnr
 from ..losses import srgb_gamma
+from ..meshing import extract_mesh, mesh_sdf_fn, write_ply
 from ..models.fields import ImplicitNetConfig, RenderingNetConfig
 from ..models.monosdf import MonoSDFConfig, init_monosdf, render_rays
 from ..ops.chunking import chunked_apply
@@ -51,6 +58,7 @@ from ..ops.sampler import SamplerConfig
 from ..params import load_jax_params, load_params_npz
 
 OUTPUT_KEYS = ("rgb_values", "depth_values", "normal_map")
+GRID_BOUNDARY = (-1.1, 1.1)  # monosdf_tpu/config/schema.py:33 grid_boundary
 
 
 def bench_mlp_config(compute_dtype: str = "bfloat16") -> MonoSDFConfig:
@@ -295,6 +303,9 @@ def main(argv=None):
     ap.add_argument("--split_n_pixels", type=int, default=1024)
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--out_dir", default="evaluation")
+    ap.add_argument("--resolution", type=int, default=512, help="the mesh's grid resolution")
+    ap.add_argument("--world_space", action="store_true",
+                    help="the mesh in the scene's world coordinates (--data_dir's scale_mat)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -302,15 +313,23 @@ def main(argv=None):
     model = init_monosdf(cfg, seed=args.init_seed, device=device)
     if args.params:
         load_jax_params(model, load_params_npz(args.params))
-    if args.data_dir:
-        frames = dataset_frames(SceneDataset(dataset_config(args)), device)
+    ds = SceneDataset(dataset_config(args)) if args.data_dir else None
+    world = args.world_space and ds is not None
+    os.makedirs(args.out_dir, exist_ok=True)
+    verts, faces = extract_mesh(mesh_sdf_fn(model, cfg), resolution=args.resolution,
+                                grid_boundary=GRID_BOUNDARY, scale=ds.scale if world else None,
+                                center=ds.center if world else None)
+    mesh_path = os.path.join(args.out_dir, f"surface_{args.resolution}.ply")
+    write_ply(mesh_path, verts, faces)
+    print(f"mesh: {mesh_path} ({len(verts)} verts)")
+    if ds is not None:
+        frames = dataset_frames(ds, device)
     else:
         frames = scene_frames(make_synthetic_sphere_scene(n_images=args.n_images,
                                                           img_res=sphere_res(args)), device)
     rows, _ = evaluate(model, cfg, frames, args.split_n_pixels)
     for frame, p in rows:
         print(f"frame {frame}: psnr {p:.2f}")
-    os.makedirs(args.out_dir, exist_ok=True)
     with open(os.path.join(args.out_dir, "psnr.csv"), "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(["frame", "psnr"])

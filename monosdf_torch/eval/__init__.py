@@ -1,3 +1,11 @@
-from .metrics import psnr
+from .metrics import (
+    chamfer_distance,
+    f_score,
+    mesh_metrics_3d,
+    normal_consistency,
+    psnr,
+    sample_mesh_surface,
+)
 
-__all__ = ["psnr"]
+__all__ = ["chamfer_distance", "f_score", "mesh_metrics_3d", "normal_consistency", "psnr",
+           "sample_mesh_surface"]

@@ -25,6 +25,37 @@ from ..data.png import write_png
 from ..data.synthetic import _look_at
 
 
+# union scene: small sphere next to a small torus (both inside the unit
+# ball), textured; the scene's normalised coordinates are its world's
+# (scale_mat is the identity)
+U_SPH_C = np.array([-0.36, 0.05, 0.0])
+U_SPH_R = 0.25
+U_TOR_C = np.array([0.34, -0.02, 0.0])
+U_TOR_R, U_TOR_r = 0.24, 0.1
+
+
+def union_sdf(p):
+    """The union scene's exact SDF (numpy, float64 for float64 points)."""
+    ds = np.linalg.norm(p - U_SPH_C, axis=-1) - U_SPH_R
+    q = p - U_TOR_C
+    rho = np.sqrt(q[..., 0] ** 2 + q[..., 1] ** 2)  # torus axis = z
+    dt = np.sqrt((rho - U_TOR_R) ** 2 + q[..., 2] ** 2) - U_TOR_r
+    return np.minimum(ds, dt)
+
+
+def union_sdf_torch(p):
+    """``union_sdf`` of a (..., 3) tensor, on its device and in its dtype
+    (the analytic surface a mesh of the union scene is held to)."""
+    import torch
+
+    sph_c, tor_c = (torch.as_tensor(c, dtype=p.dtype, device=p.device) for c in (U_SPH_C, U_TOR_C))
+    ds = torch.linalg.norm(p - sph_c, dim=-1) - U_SPH_R
+    q = p - tor_c
+    rho = torch.sqrt(q[..., 0] ** 2 + q[..., 1] ** 2)
+    dt = torch.sqrt((rho - U_TOR_R) ** 2 + q[..., 2] ** 2) - U_TOR_r
+    return torch.minimum(ds, dt)
+
+
 def room_albedo(pts, face_axis, face_sign, half):
     """Per-wall procedural texture: distinct base color per face plus a
     checker over the two in-plane coordinates — strong view-consistent
@@ -210,20 +241,6 @@ def main(argv=None) -> str:
         k = (rho - args.torus_R) / rho
         n = np.stack([k * p[..., 0], p[..., 1], k * p[..., 2]], -1)
         return n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-9)
-
-    # union scene: small sphere next to a small torus (both inside the
-    # unit ball), textured
-    U_SPH_C = np.array([-0.36, 0.05, 0.0])
-    U_SPH_R = 0.25
-    U_TOR_C = np.array([0.34, -0.02, 0.0])
-    U_TOR_R, U_TOR_r = 0.24, 0.1
-
-    def union_sdf(p):
-        ds = np.linalg.norm(p - U_SPH_C, axis=-1) - U_SPH_R
-        q = p - U_TOR_C
-        rho = np.sqrt(q[..., 0] ** 2 + q[..., 1] ** 2)  # torus axis = z
-        dt = np.sqrt((rho - U_TOR_R) ** 2 + q[..., 2] ** 2) - U_TOR_r
-        return np.minimum(ds, dt)
 
     def union_normal(p):
         ds = np.linalg.norm(p - U_SPH_C, axis=-1) - U_SPH_R

@@ -391,7 +391,8 @@ def test_grids_clis_run_on_the_cpu(tmp_path):
     tree = load_params_npz(out)
     assert tree["implicit"]["encoding"]["embeddings"].shape == (6_098_108 * 2,)
     rows = teval.main(["--grids", "--device", "cpu", "--params", str(out), "--n_images", "1",
-                       "--img_res", "2", "--split_n_pixels", "4", "--out_dir", str(tmp_path)])
+                       "--img_res", "2", "--split_n_pixels", "4", "--resolution", "8",
+                       "--out_dir", str(tmp_path)])
     assert len(rows) == 1 and np.isfinite(rows[0][1])
 
 

@@ -1,5 +1,6 @@
 """The port's import and device guards: ``monosdf_torch`` (its bench
-``monosdf_torch.bench``, data layer and scripts included) and ``chip_smoke.py`` import
+``monosdf_torch.bench``, data layer, meshing, native marcher, metrics and
+scripts included) and ``chip_smoke.py`` import
 neither JAX nor the JAX package, nor cv2 or PIL (the card's machine has neither), and an
 entry point
 needs a CUDA device unless the caller asks for the CPU. This file imports no
@@ -25,6 +26,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import monosdf_torch.scripts.rounding_parity, monosdf_torch.scripts.kernel_ab\n"
         "import monosdf_torch.data.exr, monosdf_torch.data.png, monosdf_torch.data.scene_dataset\n"
         "import monosdf_torch.scripts.make_synthetic_scene\n"
+        "import monosdf_torch.meshing, monosdf_torch.meshing.extract, monosdf_torch.meshing.marching\n"
+        "import monosdf_torch.meshing.alt_extract, monosdf_torch.meshing.ply\n"
+        "import monosdf_torch.native, monosdf_torch.eval, monosdf_torch.eval.metrics\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'monosdf_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"

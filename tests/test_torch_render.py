@@ -103,7 +103,8 @@ def test_eval_render_tiny_scene_matches_jax():
 
 def test_eval_cli_writes_psnr_csv(tmp_path):
     rows = teval.main(["--device", "cpu", "--n_images", "1", "--img_res", "4",
-                       "--split_n_pixels", "16", "--out_dir", str(tmp_path)])
+                       "--split_n_pixels", "16", "--resolution", "8", "--out_dir",
+                       str(tmp_path)])
     lines = (tmp_path / "psnr.csv").read_text().splitlines()
     assert lines[0] == "frame,psnr" and lines[-1].startswith("mean,")
     assert len(rows) == 1 and np.isfinite(rows[0][1])
