@@ -10,7 +10,8 @@ confs/synth_union_quality.conf (cli/eval.py union_codes_config: per-image
 codes, white background, sphere sampler), the last with its radiance
 through K3 and through K8a; all on the synthetic sphere, and the
 appearance-code model also on a union scene that the port generates and
-reads from disk. Phases (any failure exits non-zero):
+reads from disk; then three shipped confs (union, grid, HDR) through the
+CLIs' --conf path. Phases (any failure exits non-zero):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the kernels' nineteen libraries from monosdf_torch/csrc with nvcc
    for sm_90a, one nvcc per source, all at once (twenty kernels: K1-PE is
@@ -99,11 +100,29 @@ reads from disk. Phases (any failure exits non-zero):
    union model's Chamfer, F-score at 0.05 and normal consistency against
    it (20,000 samples a mesh; no bar); fails where jax, monosdf_tpu, cv2 or
    PIL was imported;
-11. the nerf radiance check: fields.rendering_apply_pallas in nerf mode with
+11. the conf path: confs/synth_union_quality.conf,
+   synth_sphere_quality_grids.conf and synth_union_hdr.conf, each on a
+   scene the port's generator writes at the confs' 96x96 (4 views), with an
+   overlay that cuts only the run length (CONF_OVERLAY), through
+   cli/train.py --conf (the Trainer: 20 steps of the union conf, then
+   --resume to 30, crossing a checkpoint and a validation plot; 10 of the
+   grid and HDR confs) and cli/eval.py --conf --checkpoint_dir
+   --eval_rendering (the mesh at 512 and psnr.csv), on the card as the
+   smoke's other phases (--device cuda:0); launches counted over
+   those calls, every kernel config.routed_kernels names and no other;
+   resume, checkpoint GC, metrics, plots, the grid conf's 1.0x encoding
+   rate and the HDR conf's rgb_spec_values checked, and every closing and
+   cli/eval.py mesh holding vertices (the HDR conf's where its SDF has a
+   negative value); ms a step, in turns with the same
+   step on batches sampled beforehand, the host batch alone, a profile of
+   each kind of step, checkpoint write/read, plot and mesh times; the step
+   check of phase 5 at the union and grid confs; fails where jax,
+   monosdf_tpu, cv2, PIL or matplotlib was imported;
+12. the nerf radiance check: fields.rendering_apply_pallas in nerf mode with
    codes (K8b on [view PE | features | code], 315 wide) at 100,352 samples,
    forward and backward through autograd, against rendering_apply, in
    float32 and bf16 (K8b and its backward once each);
-12. the probes (monosdf_torch/scripts/probe_hash_primitives.py, the port
+13. the probes (monosdf_torch/scripts/probe_hash_primitives.py, the port
    of scripts/probe_hash_primitives.py): its wave functions at full size,
    launches counted from 0, on one case of each Pallas site (PROBE_CASES:
    G, S, R, M, C, each launched 6 times per case), then each kept output
@@ -114,18 +133,20 @@ reads from disk. Phases (any failure exits non-zero):
    queued back to back) and host time, R's copy floor (its rows' bytes at
    3.35 TB/s) and G's shared-memory floor (its reps' reads at 32 a clock
    on each SM);
-13. print a ``render``, a ``train``, a ``render_pe``, a ``train_pe``, a
+14. print a ``render``, a ``train``, a ``render_pe``, a ``train_pe``, a
    ``render_grids``, a ``train_grids``,
    a ``render_codes``, a ``train_codes``, a ``render_codes_split``, a
-   ``train_codes_split``, a ``scene``, a ``mesh``, a ``nerf_radiance`` and a
-   ``probes`` JSON line,
-   the ``kernels`` JSON line, the card line (nvidia-smi's name and power
+   ``train_codes_split``, a ``scene``, a ``mesh``, the ``conf``,
+   ``conf_grids`` and ``conf_hdr``, a ``nerf_radiance`` and a ``probes``
+   JSON line, the ``kernels`` JSON line (each kernel's launches on every
+   main path, ``launches_conf*`` those of the conf runs), the card line (nvidia-smi's name and power
    limit), and last the result line.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -1385,10 +1406,10 @@ def render_phase(dev, which: str = "mlp"):
     return info, runs
 
 
-def _loss_and_grads(model, cfg, batch, z_vals, eik):
-    """The MonoSDF loss and every parameter gradient at fixed samples and
-    eikonal points (with per-image codes, each ray's frame's code, as the
-    training step gathers them)."""
+def _loss_and_grads(model, cfg, batch, z_vals, eik, loss_cfg=None):
+    """The MonoSDF loss (``loss_cfg``, default ``LossConfig()``) and every
+    parameter gradient at fixed samples and eikonal points (with per-image
+    codes, each ray's frame's code, as the training step gathers them)."""
     from monosdf_torch.losses import LossConfig, monosdf_loss
     from monosdf_torch.models.monosdf import render_samples
 
@@ -1397,9 +1418,62 @@ def _loss_and_grads(model, cfg, batch, z_vals, eik):
     if cfg.rendering.per_image_code:
         code = model.rendering.embeddings[batch["indices"]]
     out = render_samples(model, cfg, batch["rays"], z_vals, code, eik_points=eik)
-    loss = monosdf_loss(LossConfig(), out, batch["gt"])["loss"]
+    loss = monosdf_loss(loss_cfg or LossConfig(), out, batch["gt"])["loss"]
     loss.backward()
     return loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def step_check(what: str, cfg_d, batch, dname: str, dev, loss_cfg=None):
+    """Like for like at one batch: the kernel sampler's samples and eikonal
+    points fixed, the loss and every gradient of a perturbed model of
+    ``cfg_d`` with the kernels and with each kernel's plain version in its
+    place, held at STEP_TOL[dname] (with codes, the embeddings' gradient
+    rows too). Returns the check's line and the kernel run's launches."""
+    from monosdf_torch.kernels import build
+    from monosdf_torch.models.monosdf import sample_rays
+
+    model_d = perturbed_model(cfg_d, dev)
+    z_vals, eik = sample_rays(model_d, cfg_d, batch["rays"], True,
+                              generator=torch.Generator(device=dev).manual_seed(SEED + 3))
+    build.reset_launch_counts()
+    lk, gk = _loss_and_grads(model_d, cfg_d, batch, z_vals, eik, loss_cfg)
+    counts_k = launch_counts()
+    use_plain_versions(True)
+    build.reset_launch_counts()
+    lp, gp = _loss_and_grads(model_d, cfg_d, batch, z_vals, eik, loss_cfg)
+    use_plain_versions(False)
+    if any(build.launches.values()):
+        fail(f"{what}: the plain-version step launched kernels: {build.launches}")
+    atol, rtol, ltol = STEP_TOL[dname]
+    worst, worst_name = 0.0, ""
+    for n in gk:
+        a, b = gk[n].float(), gp[n].float()
+        if not torch.isfinite(a).all():
+            fail(f"{what} step check {dname}: gradient {n} not finite")
+        if dname == "float32":
+            r = float(((a - b).abs() / (atol + rtol * b.abs())).max())
+        else:
+            r = float((a - b).abs().max()) / (atol + rtol * float(b.abs().max()))
+        if r > worst:
+            worst, worst_name = r, n
+    l_ratio = abs(lk - lp) / (ltol * abs(lp) + 1e-30)
+    print(f"{what} step check {dname}: loss kernels {lk:.7f} plain {lp:.7f} (diff / tolerance "
+          f"{l_ratio:.3e}); worst gradient err / tolerance {worst:.3e} ({worst_name}); "
+          f"launches {_nonzero(counts_k)}", flush=True)
+    if worst > 1.0 or l_ratio > 1.0:
+        fail(f"{what} step check {dname}: kernels vs plain versions beyond the stated "
+             "tolerance")
+    if cfg_d.rendering.per_image_code:
+        # the rows of the batch's frames get a gradient, the others none
+        frames = torch.unique(batch["indices"])
+        live = gk["rendering.embeddings"].abs().amax(-1) > 0
+        if len(frames) < 2 or not live[frames].all() or int(live.sum()) != len(frames):
+            fail(f"{what} step check {dname}: embeddings gradient rows "
+                 f"{torch.nonzero(live).flatten().tolist()} != frames {frames.tolist()}")
+    del model_d, gk, gp
+    torch.cuda.empty_cache()
+    return {"loss_kernels": lk, "loss_plain": lp, "worst_grad_ratio": worst,
+            "worst_param": worst_name}, counts_k
 
 
 def train_phase(dev, which: str = "mlp"):
@@ -1411,7 +1485,7 @@ def train_phase(dev, which: str = "mlp"):
     from monosdf_torch.cli.train import make_trainer, ray_batches
     from monosdf_torch.data.synthetic import make_synthetic_sphere_scene
     from monosdf_torch.kernels import build
-    from monosdf_torch.models.monosdf import init_monosdf, sample_rays
+    from monosdf_torch.models.monosdf import init_monosdf
 
     scene = make_synthetic_sphere_scene(n_images=4, img_res=64)
     batches = ray_batches(scene, np.random.default_rng(SEED), WARMUP_STEPS + TIMED_STEPS + 1,
@@ -1473,55 +1547,14 @@ def train_phase(dev, which: str = "mlp"):
     # each kernel's plain version in its place
     batch = batches[-1]
     for dname in ("bfloat16", "float32"):
-        cfg_d = path_config(which, dname)
-        model_d = perturbed_model(cfg_d, dev)
-        z_vals, eik = sample_rays(model_d, cfg_d, batch["rays"], True,
-                                  generator=torch.Generator(device=dev).manual_seed(SEED + 3))
-        build.reset_launch_counts()
-        lk, gk = _loss_and_grads(model_d, cfg_d, batch, z_vals, eik)
-        counts_k = launch_counts()
-        use_plain_versions(True)
-        build.reset_launch_counts()
-        lp, gp = _loss_and_grads(model_d, cfg_d, batch, z_vals, eik)
-        use_plain_versions(False)
-        if any(build.launches.values()):
-            fail(f"{what}: the plain-version step launched kernels: {build.launches}")
-        atol, rtol, ltol = STEP_TOL[dname]
-        worst, worst_name = 0.0, ""
-        for n in gk:
-            a, b = gk[n].float(), gp[n].float()
-            if not torch.isfinite(a).all():
-                fail(f"{what} step check {dname}: gradient {n} not finite")
-            if dname == "float32":
-                r = float(((a - b).abs() / (atol + rtol * b.abs())).max())
-            else:
-                r = float((a - b).abs().max()) / (atol + rtol * float(b.abs().max()))
-            if r > worst:
-                worst, worst_name = r, n
-        l_ratio = abs(lk - lp) / (ltol * abs(lp) + 1e-30)
-        print(f"{what} step check {dname}: loss kernels {lk:.7f} plain {lp:.7f} (diff / tolerance "
-              f"{l_ratio:.3e}); worst gradient err / tolerance {worst:.3e} ({worst_name}); "
-              f"launches {counts_k}", flush=True)
+        check, counts_k = step_check(what, path_config(which, dname), batch, dname, dev)
         # the samples are fixed: the sampler's kernels (and the sweeps' K6) do not run
         expect_k = {**per_step, **dict.fromkeys(SWEEPS, 0)}
         if which == "grids":
             expect_k["hash_encode"] -= per_step["sdf_mlp"]
         if counts_k != expect_k:
             fail(f"{what} step check launches {counts_k} != {expect_k}")
-        if worst > 1.0 or l_ratio > 1.0:
-            fail(f"{what} step check {dname}: kernels vs plain versions beyond the stated "
-                 "tolerance")
-        if cfg_d.rendering.per_image_code:
-            # the rows of the batch's frames get a gradient, the others none
-            frames = torch.unique(batch["indices"])
-            live = gk["rendering.embeddings"].abs().amax(-1) > 0
-            if len(frames) < 2 or not live[frames].all() or int(live.sum()) != len(frames):
-                fail(f"{what} step check {dname}: embeddings gradient rows "
-                     f"{torch.nonzero(live).flatten().tolist()} != frames {frames.tolist()}")
-        info[f"step_check_{dname}"] = {"loss_kernels": lk, "loss_plain": lp,
-                                       "worst_grad_ratio": worst, "worst_param": worst_name}
-        del model_d, gk, gp
-        torch.cuda.empty_cache()
+        info[f"step_check_{dname}"] = check
     return info, (model, cfg, step, batches[0], gen)
 
 
@@ -1568,8 +1601,8 @@ def _profile(fn, reps: int, what: str) -> dict:
             torch.cuda.synchronize()
         # the device's own events only: an operator's entry repeats the time
         # of the kernels it launched
-        dev_events = [e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        averages = prof.key_averages()
+        dev_events = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
         per_name = {e.key: e.self_device_time_total / 1e3 / reps for e in dev_events}  # from us
         busy = sum(per_name.values())
         if busy > 0:
@@ -1597,7 +1630,15 @@ def _profile(fn, reps: int, what: str) -> dict:
                                            "radiance_split_bwd", "radiance_mlp_bwd")
                for p in ("ct", "dw", "sums")))
     kern_parts = {n: sum(v for k, v in per_name.items() if n in k) for n in parts}
+    # the host's side: the operators' own CPU time, and the device functions
+    # launched a call (each costs the host a launch)
+    host = {}
+    for e in averages:
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            host[e.key[:60]] = host.get(e.key[:60], 0.0) + e.self_cpu_time_total / 1e3 / reps
     return {"ms": ms, "device_busy_ms": busy, "busy_share": busy / ms, "kernels_ms": kern,
+            "device_events_per_call": sum(e.count for e in dev_events) / reps,
+            "host_top_ms": dict(sorted(host.items(), key=lambda kv: -kv[1])[:6]),
             "kernel_events": {n: c for n, c in events.items() if c},
             "launches": launched,
             "tensor_core_parts_ms": kern_parts,
@@ -1628,8 +1669,8 @@ def profile_phase(runs, info, train_run, train_info, what: str = ""):
 # reads, 4 views of 64x64 (LDR: PNG frames; HDR: EXR frames, 3 warm-up and
 # SCENE_HDR_STEPS timed steps, one view rendered)
 SCENE_VIEWS, SCENE_RES, SCENE_HDR_STEPS = 4, 64, 5
-# modules the port's data path must not pull in (the card's machine has none)
-FOREIGN = ("jax", "jaxlib", "monosdf_tpu", "cv2", "PIL")
+# modules the port must not pull in (it depends on none; the card's machine has no jax)
+FOREIGN = ("jax", "jaxlib", "monosdf_tpu", "cv2", "PIL", "matplotlib")
 
 
 def scene_phase(dev):
@@ -2001,8 +2042,284 @@ def mesh_phase(dev, union_model, union_cfg):
     return line
 
 
+# the conf phase: three shipped confs through cli/train.py --conf and
+# cli/eval.py --conf, each on a scene the port's generator writes at the
+# confs' 96x96 (4 views: 3 train frames of 9216 rays, 27 steps an epoch at
+# 1024 rays); the overlay cuts only the run length, so that the union run's
+# resume crosses one epoch (a checkpoint and a validation plot at step 27)
+CONF_VIEWS, CONF_RES = 4, 96
+CONF_OVERLAY = "train{ max_total_iters = 30, checkpoint_freq = 1, plot_freq = 1 }\n"
+# line -> (conf, generator arguments, steps of the first run, resumed to the
+# overlay's max_total_iters)
+CONF_RUNS = {
+    "conf": ("confs/synth_union_quality.conf", ["--shape", "union"], 20, True),
+    "conf_grids": ("confs/synth_sphere_quality_grids.conf", ["--shape", "sphere"], 10, False),
+    "conf_hdr": ("confs/synth_union_hdr.conf", ["--shape", "union", "--hdr"], 10, False),
+}
+CONF_TIMED_STEPS = 10
+CONF_ROUNDS = 2  # of the Trainer's step and of the pre-built batches' step, in turns
+CONF_PROFILE_STEPS = 3
+CONF_SDF_GRID = 65  # points a side: the SDF's least value over the mesh box
+CONF_EVAL_RES = 512  # cli/eval.py's default mesh resolution
+# the kernels the training step runs at fixed samples (step_check), per conf line
+CONF_STEP_KERNELS = {
+    "conf": ("sdf_grad", "sdf_grad_bwd", "radiance_norm", "radiance_norm_bwd"),
+    "conf_grids": ("hash_encode", "sdf_grad_grid", "sdf_grad_grid_bwd", "hash_encode_bwd"),
+}
+
+
+def conf_phase(dev):
+    """Phase 11: the conf path, through the entry points a user calls. For
+    each of CONF_RUNS: a scene from monosdf_torch/scripts/
+    make_synthetic_scene.py, then ``cli.train.main(["--conf", conf,
+    "--conf_add", overlay, ...])`` (a Trainer: steps, checkpoints,
+    metrics, validation plots, the closing validation and mesh) and, for
+    the union conf, a second call with ``--resume`` that continues from
+    step 20 to 30; then ``cli.eval.main(["--conf", ..., "--checkpoint_dir",
+    ..., "--eval_rendering"])``. Launches are counted over those calls: every
+    kernel of ``config.routed_kernels`` launched, no other. The union run
+    keeps at most 3 numbered checkpoints, its metrics rows show the resume
+    at 20, and its plot directory holds the epoch-1 dashboards and
+    surface_1.ply; the grid conf's encoding group runs at 1.0x the base
+    rate (its conf's factor); the HDR conf renders finite rgb_spec_values
+    and runs no K3; the closing mesh and cli/eval.py's have vertices (the
+    HDR conf's where its SDF is negative anywhere on a CONF_SDF_GRID^3
+    grid over the mesh box: after 10 steps it may be positive everywhere,
+    as the JAX package's, PERF.md PR 17). Then,
+    off the counted runs: CONF_ROUNDS rounds of CONF_TIMED_STEPS steps of
+    the trainer's step after 3 warm-up (ms a step, rays/s), in turns with
+    the same step on batches sampled beforehand, the host batch alone, a
+    torch.profiler profile of CONF_PROFILE_STEPS steps of each kind (busy
+    share, kernels, the other device work), a checkpoint's write and read
+    (seconds, bytes), a validation plot's and a mesh's seconds, and
+    at the union and grid confs the step check (kernels against plain
+    versions at fixed samples, bf16 bars). Fails where a module of FOREIGN
+    was imported. Returns the three ``conf`` lines."""
+    import tempfile
+
+    from monosdf_torch.cli import eval as ceval
+    from monosdf_torch.cli import train as ctrain
+    from monosdf_torch.config import routed_kernels
+    from monosdf_torch.kernels import build
+    from monosdf_torch.meshing import mesh_sdf_fn, read_ply
+    from monosdf_torch.models.monosdf import render_rays
+    from monosdf_torch.scripts import make_synthetic_scene
+    from monosdf_torch.train.checkpoint import load_checkpoint, restore_state, save_checkpoint
+
+    lines = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        overlay = os.path.join(tmp, "run_length.conf")
+        with open(overlay, "w") as f:
+            f.write(CONF_OVERLAY)
+        for tag, (conf_rel, gen_args, first, resume) in CONF_RUNS.items():
+            what = tag.replace("_", " ")
+            conf = os.path.join(os.path.dirname(os.path.abspath(__file__)), conf_rel)
+            root = os.path.join(tmp, tag)
+            t0 = time.perf_counter()
+            make_synthetic_scene.main([root, "--n", str(CONF_VIEWS), "--res", str(CONF_RES),
+                                       *gen_args])
+            t_gen = time.perf_counter() - t0
+            exps = os.path.join(tmp, f"exps_{tag}")
+            args = ["--conf", conf, "--conf_add", overlay, "--data_root", root,
+                    "--exps_root", exps, "--device", str(dev), "--timestamp", "smoke"]
+            # the main path: the CLI runs, launches counted from 0
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer = ctrain.main(args + ["--max_iters", str(first)])
+            t_train = time.perf_counter() - t0
+            if trainer.step != first:
+                fail(f"{what}: the first run stopped at step {trainer.step}, not {first}")
+            t_resume = None
+            if resume:
+                t0 = time.perf_counter()
+                trainer = ctrain.main(args[:-2] + ["--resume"])
+                t_resume = time.perf_counter() - t0
+            cfg, exp = trainer.exp.model, trainer.exp
+            out_dir = os.path.join(tmp, f"eval_{tag}")
+            t0 = time.perf_counter()
+            rows = ceval.main(["--conf", conf, "--conf_add", overlay, "--data_root", root,
+                               "--checkpoint_dir", trainer.ckpt_dir, "--eval_rendering",
+                               "--device", str(dev), "--resolution", str(CONF_EVAL_RES),
+                               "--out_dir", out_dir])
+            torch.cuda.synchronize()
+            t_eval = time.perf_counter() - t0
+            counts = launch_counts()
+            routed = set(routed_kernels(cfg))
+            launched = set(_nonzero(counts))
+            print(f"{what}: {conf} trained {trainer.step} steps in {t_train:.3f} s"
+                  f"{f' (resumed to {trainer.step} in {t_resume:.3f} s)' if resume else ''}, "
+                  f"cli/eval.py {t_eval:.3f} s; launches {_nonzero(counts)}; routed "
+                  f"{sorted(routed)}", flush=True)
+            if launched != routed:
+                fail(f"{what}: launched {sorted(launched)}, the routing rule names "
+                     f"{sorted(routed)}")
+
+            # the run's files
+            rows_m = [json.loads(l) for l in open(os.path.join(trainer.run_dir, "metrics.jsonl"))]
+            numbered = [f for f in os.listdir(trainer.ckpt_dir)
+                        if f.endswith(".ckpt") and f[:-5].isdigit()]
+            plots = sorted(os.listdir(trainer.plot_dir))
+            losses = [r["loss"] for r in rows_m]
+            psnr = [r[1] for r in rows]
+            print(f"{what}: metrics iters {[r['iter'] for r in rows_m]} loss "
+                  f"{[round(v, 5) for v in losses]}; checkpoints {sorted(os.listdir(trainer.ckpt_dir))}; "
+                  f"plots {plots}; eval psnr {psnr} ({sorted(os.listdir(out_dir))})", flush=True)
+            if not all(math.isfinite(v) for v in losses + psnr) or not rows_m:
+                fail(f"{what}: a logged loss or an eval PSNR is not finite")
+            if len(numbered) > 3 or "latest.ckpt" not in os.listdir(trainer.ckpt_dir):
+                fail(f"{what}: checkpoints {numbered} (at most 3 numbered, and latest.ckpt)")
+            if not {"psnr.csv", f"surface_{CONF_EVAL_RES}.ply"} <= set(os.listdir(out_dir)):
+                fail(f"{what}: cli/eval.py wrote {os.listdir(out_dir)}")
+            if f"surface_{trainer.step}.ply" not in plots:
+                fail(f"{what}: no closing mesh surface_{trainer.step}.ply in {plots}")
+            # the closing mesh (at the plot resolution) and cli/eval.py's hold
+            # a surface; only an SDF with no negative value meshes to nothing,
+            # and only the HDR conf's may have none so early (PERF.md, PR 17)
+            mesh_verts = {
+                "closing": len(read_ply(os.path.join(trainer.plot_dir,
+                                                     f"surface_{trainer.step}.ply"))[0]),
+                "eval": len(read_ply(os.path.join(out_dir, f"surface_{CONF_EVAL_RES}.ply"))[0])}
+            lo, hi = exp.grid_boundary
+            axis = torch.linspace(lo, hi, CONF_SDF_GRID, device=dev)
+            with torch.no_grad():
+                sdf_min = float(mesh_sdf_fn(trainer.model, cfg)(
+                    torch.stack(torch.meshgrid(axis, axis, axis, indexing="ij"), -1)
+                    .reshape(-1, 3)).min())
+            print(f"{what}: mesh vertices {mesh_verts}; the SDF's least value on a "
+                  f"{CONF_SDF_GRID}^3 grid {sdf_min:.5f}", flush=True)
+            if not all(mesh_verts.values()) and (tag != "conf_hdr" or sdf_min < 0):
+                fail(f"{what}: an empty mesh ({mesh_verts} vertices; the SDF's least value "
+                     f"{sdf_min:.5f})")
+            if resume:
+                frame = trainer.val_images[0]["frame_idx"]
+                want = {"surface_1.ply", *(f"VAL_{n}_1_{frame}.png"
+                                           for n in ("rendering", "depth", "normal", "merge"))}
+                if [r["iter"] for r in rows_m] != [1, first + 1] or not want <= set(plots):
+                    fail(f"{what}: the resume did not continue from {first}, or the epoch-1 "
+                         f"plot is missing ({sorted(want - set(plots))})")
+            if cfg.implicit.use_grid:
+                lr_of = {id(p): g["lr"] for g in trainer.optimizer.adam.param_groups
+                         for p in g["params"]}
+                imp = trainer.model.implicit
+                lr_enc, lr_net = lr_of[id(imp.encoding.embeddings)], lr_of[id(imp.lin0.b)]
+                ratio = lr_enc / lr_net
+                print(f"{what}: encoding group lr {lr_enc:.6e}, {ratio} x the base rate "
+                      f"(conf factor {exp.optim.lr_factor_for_grid})", flush=True)
+                if ratio != 1.0:
+                    fail(f"{what}: the encoding group's rate is {ratio} x the base rate, not 1.0")
+            if cfg.rendering.spec:
+                img = trainer.val_images[0]
+                rays = {k: torch.from_numpy(np.ascontiguousarray(v[:CHUNK])).to(dev)
+                        for k, v in img["rays"].items()}
+                code = trainer.model.rendering.embeddings.detach()[img["frame_idx"]]
+                out = render_rays(trainer.model, cfg, rays,
+                                  image_code=code[None].expand(rays["rays_o"].shape[0], -1))
+                spec = out.get("rgb_spec_values")
+                print(f"{what}: rgb_spec_values max {None if spec is None else float(spec.max())}, "
+                      f"rgb_values max {float(out['rgb_values'].max()):.4f}", flush=True)
+                if spec is None or not all(torch.isfinite(v).all() for v in out.values()):
+                    fail(f"{what}: no rgb_spec_values, or a render output not finite")
+
+            # off the counted runs: the step's time, a checkpoint, a plot, a mesh
+            steps_run, step, gen = trainer.step, trainer.step_fn, trainer.generator
+            n_rays = exp.num_pixels
+            host_step = lambda: step(trainer.model, trainer.sample_batch(n_rays), generator=gen)
+            for _ in range(WARMUP_STEPS):
+                host_step()
+            # the Trainer's step (its batch sampled on the host each step) and
+            # the same step on batches sampled beforehand, in turns; then the
+            # host batch alone
+            pre = [trainer.sample_batch(n_rays) for _ in range(CONF_TIMED_STEPS)]
+            pre_cycle = itertools.cycle(pre)
+            pre_step = lambda: step(trainer.model, next(pre_cycle), generator=gen)
+            rounds = {"trainer": [], "prebuilt": []}
+            for _ in range(CONF_ROUNDS):
+                for kind, fn in (("trainer", host_step), ("prebuilt", pre_step)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(CONF_TIMED_STEPS):
+                        m = fn()
+                    torch.cuda.synchronize()
+                    rounds[kind].append((time.perf_counter() - t0) / CONF_TIMED_STEPS * 1e3)
+                    if not math.isfinite(float(m["loss"])):
+                        fail(f"{what}: a timed step's loss is not finite")
+            ms_step = rounds["trainer"][0]
+            t0 = time.perf_counter()
+            for _ in range(CONF_TIMED_STEPS):
+                trainer.sample_batch(n_rays)
+            torch.cuda.synchronize()
+            ms_batch = (time.perf_counter() - t0) / CONF_TIMED_STEPS * 1e3
+            # where the time goes: torch.profiler over both kinds of step
+            profiles = {}
+            for kind, fn in (("trainer", host_step), ("prebuilt", pre_step)):
+                prof = _profile(fn, CONF_PROFILE_STEPS, f"{what} {kind} step")
+                profiles[kind] = {
+                    "ms_per_step": prof["ms"], "device_busy_ms": prof["device_busy_ms"],
+                    "busy_share": prof["busy_share"],
+                    "kernels_ms": {k: v for k, v in prof["kernels_ms"].items() if v},
+                    "other_ms": prof["other_ms"], "other_top_ms": prof["other_top_ms"],
+                    "device_events_per_step": prof["device_events_per_call"],
+                    "host_top_ms": prof["host_top_ms"]}
+            print(f"{what} bf16 steps (ms, {CONF_ROUNDS} rounds of {CONF_TIMED_STEPS} in turns): "
+                  f"trainer {[round(v, 3) for v in rounds['trainer']]}, pre-built batches "
+                  f"{[round(v, 3) for v in rounds['prebuilt']]}; the host batch alone "
+                  f"{ms_batch:.3f}; profiles of {CONF_PROFILE_STEPS}: {json.dumps(profiles)}",
+                  flush=True)
+            ck = os.path.join(tmp, f"ckpt_{tag}")
+            t0 = time.perf_counter()
+            path = save_checkpoint(ck, trainer.model, trainer.optimizer, 99)
+            t_write = time.perf_counter() - t0
+            ck_bytes = os.path.getsize(path)
+            t0 = time.perf_counter()
+            restore_state(trainer.model, trainer.optimizer, load_checkpoint(ck), strict=True)
+            torch.cuda.synchronize()
+            t_read = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            trainer.plot_validation(99)
+            torch.cuda.synchronize()
+            t_plot = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            trainer.export_mesh(path=os.path.join(tmp, f"mesh_{tag}.ply"))
+            t_mesh = time.perf_counter() - t0
+            print(f"{what} bf16: {ms_step:.3f} ms/step ({exp.num_pixels / ms_step * 1e3:.1f} "
+                  f"rays/s) over {CONF_TIMED_STEPS} steps after {WARMUP_STEPS} warm-up; checkpoint "
+                  f"write {t_write:.3f} s, read {t_read:.3f} s, {ck_bytes} bytes; validation plot "
+                  f"{t_plot:.3f} s (mesh at {exp.plot_resolution} and dashboards), mesh "
+                  f"{t_mesh:.3f} s", flush=True)
+            line = {"conf": conf_rel, "overlay": CONF_OVERLAY.strip(), "scene": gen_args,
+                    "views": CONF_VIEWS, "img_res": [CONF_RES, CONF_RES], "generate_s": t_gen,
+                    "steps": steps_run, "train_s": t_train, "resume_s": t_resume,
+                    "eval_s": t_eval, "psnr": psnr, "loss": losses,
+                    "ms_per_step": ms_step, "rays_per_s": exp.num_pixels / ms_step * 1e3,
+                    "timed_steps": CONF_TIMED_STEPS, "warmup": WARMUP_STEPS,
+                    "ms_per_step_rounds": rounds["trainer"],
+                    "ms_per_step_prebuilt_rounds": rounds["prebuilt"],
+                    "ms_host_batch": ms_batch, "profile": profiles, "mesh_verts": mesh_verts,
+                    "sdf_min": sdf_min,
+                    "ckpt_write_s": t_write, "ckpt_read_s": t_read, "ckpt_bytes": ck_bytes,
+                    "plot_s": t_plot, "mesh_s": t_mesh, "mesh_resolution": exp.plot_resolution,
+                    "routed": sorted(routed), "launches": counts}
+            if tag in CONF_STEP_KERNELS:
+                batch = trainer.sample_batch(exp.num_pixels)
+                check, counts_k = step_check(what, cfg, batch, "bfloat16", dev, exp.loss)
+                if not all(counts_k[k] for k in CONF_STEP_KERNELS[tag]):
+                    fail(f"{what} step check: launches {_nonzero(counts_k)} miss a kernel of "
+                         f"{CONF_STEP_KERNELS[tag]}")
+                line["step_check_bfloat16"] = check
+            lines[tag] = line
+            trainer.close()
+            del trainer, step
+            torch.cuda.empty_cache()
+    foreign = sorted({m.split(".")[0] for m in sys.modules} & set(FOREIGN))
+    print(f"conf: modules of {list(FOREIGN)} imported: {foreign}", flush=True)
+    if foreign:
+        fail(f"the conf phase imported {foreign}")
+    return lines
+
+
 def nerf_phase(dev):
-    """Phase 11: fields.rendering_apply_pallas in nerf mode with codes (K8b
+    """Phase 12: fields.rendering_apply_pallas in nerf mode with codes (K8b
     on h0 = [view PE | features | code], 27 + 256 + 32 = 315 wide) at the
     step's 100,352 samples, forward and backward through autograd, launches
     counted from 0, against rendering_apply (the plain path through
@@ -2109,7 +2426,7 @@ PROBE_PRIMARY = {"probe_gather": "pl_dyngather_ax0_8192x128",
 # sums of the same terms in another order (the atomics' order changes from
 # run to run); G, M (0/1 permutation) and C exactly
 PROBE_SUM_RTOL = 1e-5
-# the probe kernels whose calls phase 12 splits into device and host time
+# the probe kernels whose calls phase 13 splits into device and host time
 SPLIT_KERNELS = ("probe_gather", "probe_scatter_rows", "probe_row_copy", "probe_strided_permute",
                  "probe_capacity")
 
@@ -2231,7 +2548,7 @@ def _probe_library(kernel: str, inputs: dict):
 
 
 def probes_phase(dev, results):
-    """Phase 12: the probe waves (monosdf_torch/scripts/probe_hash_primitives.py)
+    """Phase 13: the probe waves (monosdf_torch/scripts/probe_hash_primitives.py)
     at full size on PROBE_CASES, launches counted from 0 and checked exactly
     (LAUNCHES_PER_CASE per case), each kept output against its plain
     version, each kernel again on random inputs of the case's shapes; per
@@ -2386,6 +2703,7 @@ def main(argv):
     lines["mesh"] = mesh_phase(dev, union_model, union_cfg)
     del union_model
     torch.cuda.empty_cache()
+    lines.update(conf_phase(dev))
     lines["nerf_radiance"] = nerf_phase(dev)
     lines["probes"] = probes_phase(dev, results)
     for name in bulk:
@@ -2396,8 +2714,9 @@ def main(argv):
     for name in build.KERNELS:
         r = results[name]
         # the main paths' runs, each counted from 0: the bf16 renders (16
-        # chunks each), the timed training steps of every model, the nerf
-        # check, the probes
+        # chunks each), the timed training steps of every model, the scene's
+        # and the mesh phase's runs, the three conf runs (train, resume and
+        # eval), the nerf check, the probes
         runs_n = {f"launches_{tag}": line["launches"][name] for tag, line in lines.items()}
         per = {}
         for which, (suffix, per_chunk, per_step) in PATHS.items():

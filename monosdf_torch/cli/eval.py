@@ -26,12 +26,24 @@ the model's HDR output, PSNR then taken through the sRGB gamma;
 ``--center_crop_type``): the split's frames through ``image_rays``. Runs on
 the card unless ``--device cpu``.
 
+With ``--conf`` (and ``--conf_add``) and ``--checkpoint_dir`` it is
+monosdf_tpu/cli/eval.py: the conf builds the model
+(``config.build_configs``), its parameters come from the checkpoint
+``--checkpoint`` (``latest``; one that either package wrote,
+``train.checkpoint.load_checkpoint``), the mesh is taken over the conf's
+``grid_boundary`` (world coordinates with ``--world_space``: the val
+split's ``scale_mat``), and ``--eval_rendering`` renders every frame of
+the conf's val split in chunks of its ``split_n_pixels`` and writes
+``psnr.csv``.
+
     python -m monosdf_torch.cli.eval --n_images 4 --img_res 64 --out_dir evaluation
     python -m monosdf_torch.cli.eval --grids --out_dir evaluation_grids
     python -m monosdf_torch.cli.eval --union --out_dir evaluation_union
     python -m monosdf_torch.cli.eval --sweep_pe --out_dir evaluation_pe
     python -m monosdf_torch.cli.eval --union --data_root scenes --data_dir union_scene \
         --img_res 64 64 --params trained_union.npz --resolution 512 --out_dir evaluation_union
+    python -m monosdf_torch.cli.eval --conf confs/synth_union_quality.conf --data_root scenes \
+        --checkpoint_dir exps/<run>/checkpoints --eval_rendering --out_dir evaluation_union
 """
 
 from __future__ import annotations
@@ -294,19 +306,73 @@ def evaluate(model, cfg: MonoSDFConfig, frames: list, split_n_pixels: int = 1024
     return rows, renders
 
 
+def write_psnr_csv(out_dir: str, rows: list):
+    """``<out_dir>/psnr.csv``: frame, psnr rows and their mean."""
+    with open(os.path.join(out_dir, "psnr.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["frame", "psnr"])
+        w.writerows(rows)
+        w.writerow(["mean", float(np.mean([r[1] for r in rows]))])
+
+
+def conf_main(args):
+    """Mesh (and with ``--eval_rendering`` render) the checkpoint of a
+    ``--conf`` run (monosdf_tpu/cli/eval.py main); returns the PSNR rows."""
+    from ..config import build_configs, load_conf
+    from ..train.checkpoint import load_checkpoint
+    from .common import dataset_config_from_conf
+
+    if not args.checkpoint_dir:
+        raise SystemExit("--conf needs --checkpoint_dir")
+    device = resolve_device(args.device)
+    exp = build_configs(load_conf(args.conf, args.conf_add))
+    cfg = exp.model
+    payload = load_checkpoint(args.checkpoint_dir, args.checkpoint)
+    model = load_jax_params(init_monosdf(cfg, device=device), payload["params"])
+    os.makedirs(args.out_dir, exist_ok=True)
+    ds = SceneDataset(dataset_config_from_conf(exp.dataset, args.data_root, args.scan_id, "val"))
+    verts, faces = extract_mesh(mesh_sdf_fn(model, cfg), resolution=args.resolution,
+                                grid_boundary=exp.grid_boundary,
+                                scale=ds.scale if args.world_space else None,
+                                center=ds.center if args.world_space else None)
+    mesh_path = os.path.join(args.out_dir, f"surface_{args.resolution}.ply")
+    write_ply(mesh_path, verts, faces)
+    print(f"mesh: {mesh_path} ({len(verts)} verts)")
+    rows = []
+    if args.eval_rendering:
+        rows, _ = evaluate(model, cfg, dataset_frames(ds, device),
+                           args.split_n_pixels or exp.split_n_pixels)
+        for frame, p in rows:
+            print(f"frame {frame}: psnr {p:.2f}")
+        write_psnr_csv(args.out_dir, rows)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_model_args(ap)
     add_data_args(ap)
     ap.add_argument("--params", default=None, help=".npz of a JAX parameter tree")
     ap.add_argument("--init_seed", type=int, default=0)
-    ap.add_argument("--split_n_pixels", type=int, default=1024)
+    ap.add_argument("--split_n_pixels", type=int, default=None,
+                    help="rays a render chunk (default 1024; with --conf the conf's)")
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--out_dir", default="evaluation")
     ap.add_argument("--resolution", type=int, default=512, help="the mesh's grid resolution")
     ap.add_argument("--world_space", action="store_true",
                     help="the mesh in the scene's world coordinates (--data_dir's scale_mat)")
+    ap.add_argument("--conf", default=None, help="a HOCON conf (with --checkpoint_dir)")
+    ap.add_argument("--conf_add", default=None, help="an overlay conf merged over --conf")
+    ap.add_argument("--checkpoint_dir", default=None, help="a run's checkpoints/ directory")
+    ap.add_argument("--checkpoint", default="latest", help="the checkpoint's name (<name>.ckpt)")
+    ap.add_argument("--scan_id", default="")
+    ap.add_argument("--eval_rendering", action="store_true",
+                    help="with --conf: render the val split's frames and write psnr.csv")
     args = ap.parse_args(argv)
+    if args.conf:
+        if args.grids or args.union or args.sweep_pe or args.params or args.data_dir:
+            ap.error("--conf names the model and the scene: drop the hard-wired model flags")
+        return conf_main(args)
 
     device = resolve_device(args.device)
     cfg = model_config(args)
@@ -327,14 +393,10 @@ def main(argv=None):
     else:
         frames = scene_frames(make_synthetic_sphere_scene(n_images=args.n_images,
                                                           img_res=sphere_res(args)), device)
-    rows, _ = evaluate(model, cfg, frames, args.split_n_pixels)
+    rows, _ = evaluate(model, cfg, frames, args.split_n_pixels or 1024)
     for frame, p in rows:
         print(f"frame {frame}: psnr {p:.2f}")
-    with open(os.path.join(args.out_dir, "psnr.csv"), "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(["frame", "psnr"])
-        w.writerows(rows)
-        w.writerow(["mean", float(np.mean([r[1] for r in rows]))])
+    write_psnr_csv(args.out_dir, rows)
     return rows
 
 

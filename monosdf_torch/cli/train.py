@@ -24,9 +24,21 @@ the synthetic sphere, or with ``--data_dir`` a scene directory under
 ``--img_res H W``, ``--center_crop_type``; ``--if_hdr``: EXR frames, the
 model's HDR output and the rgb loss through the sRGB gamma, as
 ``confs/synth_union_hdr.conf``). Runs on the card unless ``--device cpu``.
-No checkpoints, config files or validation renders: the trainer's other
-features come with a later slice.
+These hard-wired runs write no checkpoint.
 
+With ``--conf`` (and an overlay ``--conf_add``) it is the counterpart of
+monosdf_tpu/cli/train.py, the exp_runner.py equivalent: the HOCON conf
+builds the model, loss and optimizer (``config.build_configs``: the conf's
+backends, the kernel routing rule, its learning-rate factor and decay), the
+scene is ``<data_root>/<dataset.data_dir>`` (``--scan_id``), and
+``train.trainer.Trainer`` trains it with checkpoints (resume with
+``--resume``, warm start with ``--load_from``), metrics, validation plots
+and a mesh at the end, under ``<exps_root>/<timestamp>-<prefix><expname>
+<suffix>``. ``--profile_dir`` writes a ``torch.profiler`` trace of the first
+50 steps there (``trace.json``).
+
+    python -m monosdf_torch.cli.train --conf confs/synth_union_quality.conf \
+        --data_root scenes --exps_root exps [--conf_add overlay.conf] [--resume] [--max_iters N]
     python -m monosdf_torch.cli.train --steps 20 --out trained.npz
     python -m monosdf_torch.cli.train --grids --steps 20 --out trained_grids.npz
     python -m monosdf_torch.cli.train --union --steps 20 --out trained_union.npz
@@ -39,6 +51,7 @@ features come with a later slice.
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -85,10 +98,82 @@ def load_scene(args) -> dict:
     return make_synthetic_sphere_scene(n_images=args.n_images, img_res=sphere_res(args))
 
 
+def add_conf_args(ap):
+    """The flags of a ``--conf`` run (monosdf_tpu/cli/train.py's)."""
+    ap.add_argument("--conf", default=None, help="a HOCON conf: train it with the Trainer")
+    ap.add_argument("--conf_add", default=None, help="an overlay conf merged over --conf")
+    ap.add_argument("--scan_id", default="")
+    ap.add_argument("--exps_root", default="exps",
+                    help="where the run directories go (default: exps/ under the working "
+                         "directory; the JAX CLI's default is ../exps)")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--load_from", default=None,
+                    help="warm-start from another run's latest checkpoint, matched by run-dir "
+                         "prefix (exp_runner.py:29)")
+    ap.add_argument("--prefix", default="", help="expname prefix (exp_runner.py:27)")
+    ap.add_argument("--append", default="", help="expname suffix (exp_runner.py:26)")
+    ap.add_argument("--timestamp", default=None)
+    ap.add_argument("--max_iters", type=int, default=None)
+    ap.add_argument("--n_devices", type=int, default=1, help="more than 1 is not ported yet")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile_dir", default=None,
+                    help="write a torch.profiler trace of the first 50 steps")
+
+
+def conf_main(args):
+    """Train the model of ``--conf`` (monosdf_tpu/cli/train.py main);
+    returns the Trainer."""
+    from ..config import build_configs, load_conf
+    from ..train.trainer import Trainer
+    from .common import dataset_config_from_conf
+
+    device = resolve_device(args.device)
+    exp = build_configs(load_conf(args.conf, args.conf_add))
+    train_ds = SceneDataset(dataset_config_from_conf(exp.dataset, args.data_root, args.scan_id,
+                                                     "train"))
+    try:
+        val_ds = SceneDataset(dataset_config_from_conf(exp.dataset, args.data_root, args.scan_id,
+                                                       "val"))
+        val_images = [val_ds.image_rays(i) for i in range(min(2, len(val_ds.frame_idx_list)))]
+    except Exception as e:  # val split optional
+        print(f"no val split: {e}")
+        val_images = []
+    trainer = Trainer(
+        exp,
+        train_ds.pixel_rays(),
+        val_images=val_images,
+        exps_root=args.exps_root,
+        expname_suffix=(f"_{args.scan_id}" if args.scan_id else "") + args.append,
+        expname_prefix=args.prefix,
+        resume=args.resume,
+        load_from=args.load_from,
+        timestamp=args.timestamp,
+        seed=args.seed,
+        n_devices=args.n_devices,
+        scale=train_ds.scale,
+        center=train_ds.center,
+        device=device,
+    )
+    if args.profile_dir:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
+            trainer.train(max_iters=min(50, args.max_iters or 50))
+        os.makedirs(args.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+    trainer.train(max_iters=args.max_iters)
+    if val_images:
+        print("val:", trainer.validate())
+    print("mesh:", trainer.export_mesh()[0])
+    return trainer
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_model_args(ap)
     add_data_args(ap)
+    add_conf_args(ap)
     ap.add_argument("--params", default=None, help=".npz of a JAX parameter tree")
     ap.add_argument("--init_seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=20)
@@ -97,6 +182,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--out", default="trained_params.npz")
     args = ap.parse_args(argv)
+    if args.conf:
+        if args.grids or args.union or args.sweep_pe or args.params or args.data_dir:
+            ap.error("--conf names the model and the scene: drop the hard-wired model flags")
+        return conf_main(args)
 
     device = resolve_device(args.device)
     cfg = model_config(args, args.compute_dtype)

@@ -124,6 +124,13 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 def write_png(path: str, img: np.ndarray, level: int = 6):
     """Write (H, W) gray or (H, W, C) gray-alpha / RGB / RGBA samples, uint8
     or uint16, in that channel order; filter 0 on every row."""
+    data = encode_png(img, level)
+    with open(path, "wb") as fh:
+        fh.write(data)
+
+
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """The PNG file ``write_png`` writes, as bytes."""
     img = np.asarray(img)
     if img.dtype not in (np.uint8, np.uint16):
         raise ValueError(f"PNG samples must be uint8 or uint16, not {img.dtype}")
@@ -136,6 +143,5 @@ def write_png(path: str, img: np.ndarray, level: int = 6):
     rows = rows.reshape(h, -1).view(np.uint8)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
     ihdr = struct.pack(">IIBBBBB", w, h, 8 * img.dtype.itemsize, ctype, 0, 0, 0)
-    with open(path, "wb") as fh:
-        fh.write(_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(raw, level))
-                 + _chunk(b"IEND", b""))
+    return (_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(raw, level))
+            + _chunk(b"IEND", b""))

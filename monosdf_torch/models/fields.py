@@ -320,10 +320,6 @@ class RenderingNetConfig:
     max_images: int = 1024
     code_dim: int = 32
 
-    def __post_init__(self):
-        if self.spec:
-            raise NotImplementedError("the specular head comes with a later slice")
-
     @property
     def layer_dims(self) -> tuple:
         d0 = self.d_in + self.feature_vector_size
@@ -340,13 +336,16 @@ class RenderingNetConfig:
 
 class RenderingNet(nn.Module):
     """The radiance MLP: layers ``lin0 ..`` and, with per-image codes,
-    ``embeddings`` (max_images, code_dim)."""
+    ``embeddings`` (max_images, code_dim). With the specular head
+    (``spec``) layer ``num_layers - 3`` takes 3 inputs fewer: the diffuse
+    colour is split off before it."""
 
     def __init__(self, cfg: RenderingNetConfig, device=None):
         super().__init__()
         dims = cfg.layer_dims
         for l in range(cfg.num_layers - 1):
-            self.add_module(f"lin{l}", Linear(dims[l], dims[l + 1], cfg.weight_norm, device))
+            d_in = dims[l] - 3 if cfg.spec and l == cfg.num_layers - 3 else dims[l]
+            self.add_module(f"lin{l}", Linear(d_in, dims[l + 1], cfg.weight_norm, device))
         if cfg.per_image_code:
             self.embeddings = nn.Parameter(
                 torch.empty(cfg.max_images, cfg.code_dim, device=device)
@@ -369,7 +368,11 @@ def init_rendering_net(cfg: RenderingNetConfig, generator: torch.Generator, devi
 
 def rendering_apply(params: RenderingNet, cfg: RenderingNetConfig, points, normals,
                     view_dirs, feature_vectors, image_code=None, dtype=None) -> dict:
-    """Per-sample radiance over flat (N, .) inputs."""
+    """Per-sample radiance over flat (N, .) inputs: ``rgb``, and with the
+    specular head (``spec``, HDR) ``rgb_diff`` and ``rgb_spec`` too: the
+    diffuse trunk's first 3 channels are the diffuse colour, the rest go
+    on through the specular layers, every layer with its ReLU, and rgb is
+    their sum (monosdf_tpu/models/fields.py:544-556)."""
     if cfg.multires_view > 0:
         view_dirs = positional_encoding(view_dirs, cfg.multires_view)
     if cfg.mode == "idr":
@@ -381,6 +384,16 @@ def rendering_apply(params: RenderingNet, cfg: RenderingNetConfig, points, norma
     if cfg.per_image_code:
         h = torch.cat([h, image_code], dim=-1)
     lins = params.layers()
+    if cfg.spec:
+        if not cfg.if_hdr:
+            raise ValueError("the specular head is HDR only (rendering.if_hdr)")
+        split = cfg.num_layers - 3
+        for lin in lins[:split]:
+            h = torch.relu(apply_linear(lin, h, dtype=dtype))
+        color_diff, h = h[:, :3], h[:, 3:]
+        for lin in lins[split:]:
+            h = torch.relu(apply_linear(lin, h, dtype=dtype))
+        return {"rgb": color_diff + h, "rgb_diff": color_diff, "rgb_spec": h}
     for l, lin in enumerate(lins):
         last = l == len(lins) - 1
         h = apply_linear(lin, h, dtype=dtype, keep_dtype=not last)
@@ -392,7 +405,8 @@ def rendering_apply(params: RenderingNet, cfg: RenderingNetConfig, points, norma
 
 def rendering_apply_pallas(params: RenderingNet, cfg: RenderingNetConfig, points, normals,
                            view_dirs, feature_vectors, image_code=None, dtype=None) -> dict:
-    """rendering_apply (no specular head) through the radiance kernels:
+    """rendering_apply (no specular head: it runs the plain path, as in
+    the JAX package) through the radiance kernels:
     in idr mode K8a (``kernels/radiance_split.py``) on the raw normals,
     [points | view PE], the features and the per-image code as separate
     operands; in nerf mode K8b (``kernels/radiance_mlp.py``) on h0 = [view

@@ -206,7 +206,9 @@ def render_rays(params: MonoSDF, cfg: MonoSDFConfig, rays: dict, training: bool 
 
     rays: rays_o (R,3), rays_d (R,3) normalised, depth_scale (R,1), pose
     (R,4,4) camera-to-world. Returns rgb, rgb_values, depth_values, z_vals,
-    depth_vals, sdf, weights and normal_map (camera frame).
+    depth_vals, sdf, weights and normal_map (camera frame), and with the
+    specular head (``rendering.spec``) rgb_spec (R, S, 3) and
+    rgb_spec_values, its composite.
 
     Eval (``training=False``) runs without grad. Training draws the
     sampler's jitter, final draw, extra samples and eikonal pick and the
@@ -242,6 +244,39 @@ def render_samples(params: MonoSDF, cfg: MonoSDFConfig, rays: dict, z_vals: torc
         with torch.no_grad():
             return _render_samples(params, cfg, rays, z_vals, image_code, None, table)
     return _render_samples(params, cfg, rays, z_vals, image_code, eik_points, table)
+
+
+def radiance_route(cfg: MonoSDFConfig) -> str:
+    """The radiance path of a render: 'fused' (K3, on K2's raw gradient),
+    'split' (K8a) or 'plain'. The specular head and the other modes take
+    the plain path on every backend, as in the JAX package
+    (monosdf_tpu/models/monosdf.py:205-208, 317-320)."""
+    ren = cfg.rendering
+    if ren.mode != "idr" or ren.spec:
+        return "plain"
+    if cfg.rgb_backend == "fused" and cfg.diff_backend == "pallas" and not cfg.implicit.use_grid:
+        return "fused"
+    return "split" if cfg.rgb_backend == "pallas" else "plain"
+
+
+def routed_kernels(cfg: MonoSDFConfig) -> tuple:
+    """The kernels (``kernels.build.KERNELS`` names) that a training run of
+    ``cfg`` launches on the card: its steps (``sample_rays`` and
+    ``_render_samples``), its validation renders and its mesh export
+    (``meshing.mesh_sdf_fn``, routed as the sweeps)."""
+    grid = cfg.implicit.use_grid
+    out = []
+    if cfg.sampler_backend == "pallas":
+        out += ["sdf_mlp", "hash_encode"] if grid else [
+            "sdf_mlp_pe" if cfg.sweep_pe_in_kernel else "sdf_mlp"]
+    if cfg.sampler.machinery == "pallas":
+        out.append("sampler_machinery")
+    if cfg.diff_backend == "pallas":
+        out += (["hash_encode", "sdf_grad_grid", "sdf_grad_grid_bwd", "hash_encode_bwd"] if grid
+                else ["sdf_grad", "sdf_grad_bwd"])
+    out += {"fused": ["radiance_norm", "radiance_norm_bwd"],
+            "split": ["radiance_split", "radiance_split_bwd"]}.get(radiance_route(cfg), [])
+    return tuple(dict.fromkeys(out))
 
 
 def _render_samples(params, cfg, rays, z_vals, image_code, eik_points, table) -> dict:
@@ -290,9 +325,9 @@ def _render_samples(params, cfg, rays, z_vals, image_code, eik_points, table) ->
         code_flat = image_code[:, None, :].expand(R, S, image_code.shape[-1]).reshape(R * S, -1)
 
     ren_cfg = cfg.rendering
-    rgb_fused = cfg.rgb_backend == "fused" and use_pallas_diff and ren_cfg.mode == "idr"
-    rgb_split = cfg.rgb_backend == "pallas" and ren_cfg.mode == "idr"
-    if rgb_fused or rgb_split:
+    route = radiance_route(cfg)
+    rgb_fused = route == "fused"
+    if route != "plain":
         # view dirs are constant along a ray: encode (R, 3) once, repeat over samples
         dirs_in = rays_d[:, None, :].expand(R, S, 3).reshape(R * S, 3)
         if ren_cfg.multires_view > 0:
@@ -340,6 +375,10 @@ def _render_samples(params, cfg, rays, z_vals, image_code, eik_points, table) ->
         "weights": weights,
         "normal_map": normal_map,
     }
+    if ren_cfg.spec:
+        rgb_spec = render_out["rgb_spec"].reshape(R, S, 3)
+        out["rgb_spec"] = rgb_spec
+        out["rgb_spec_values"] = torch.sum(weights[..., None] * rgb_spec, dim=1)
     if training:
         half = eik_points.shape[0] // 2
         out["grad_theta"], out["grad_theta_nei"] = grad_theta[:half], grad_theta[half:]

@@ -42,7 +42,10 @@ def unflatten_tree(flat: dict) -> dict:
 @torch.no_grad()
 def load_jax_params(model: nn.Module, tree: dict) -> nn.Module:
     """Copy every array of ``tree`` into the parameter of the same path.
-    Raises on a missing or extra key and on a shape mismatch."""
+    An array of the parameter's size but another shape is reshaped (the
+    hash table as (T, C) or, with ``param_flat``, (T*C,), the same
+    row-major values: monosdf_tpu/train/checkpoint.py restore_state). Raises
+    on a missing or extra key and on a size mismatch."""
     flat = {k.replace("/", "."): v for k, v in flatten_tree(tree).items()}
     named = dict(model.named_parameters())
     missing, extra = set(named) - set(flat), set(flat) - set(named)
@@ -50,6 +53,8 @@ def load_jax_params(model: nn.Module, tree: dict) -> nn.Module:
         raise KeyError(f"parameter trees differ: missing {sorted(missing)}, extra {sorted(extra)}")
     for name, p in named.items():
         src = torch.from_numpy(np.array(flat[name], dtype=np.float32))
+        if tuple(src.shape) != tuple(p.shape) and src.numel() == p.numel():
+            src = src.reshape(p.shape)
         if tuple(src.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {tuple(src.shape)}, model has {tuple(p.shape)}")
         p.copy_(src.to(p.device))

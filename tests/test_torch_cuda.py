@@ -8,7 +8,8 @@ nor the JAX package, so it also runs where JAX is not installed:
 Small widths (4x48 SDF MLP with a skip at 2, multires 4; 2x48 radiance
 MLP, with codes of 8 for K3, K8a and K8b; a 6-level hash grid and a 2x48
 grid trunk on its 71-wide input) and a few hundred points; the full-width
-shapes are chip_smoke.py's.
+shapes are chip_smoke.py's. The conf tests run three shipped confs at full
+width through cli/train.py --conf for 3 steps on 32x32 scenes.
 """
 
 import subprocess
@@ -1429,3 +1430,115 @@ def test_mesh_export_raises_when_the_native_build_fails(dev, monkeypatch):
     monkeypatch.setenv("CXX", "false")
     with pytest.raises(RuntimeError, match="building marching_tets.cpp failed"):
         extract_mesh(mesh_sdf_fn(model, cfg), resolution=32)
+
+
+# -- the conf path ---------------------------------------------------------
+
+# a shipped conf at full width on a 32x32 scene of 3 views, run for 3 steps
+# (the overlay cuts the run length and the images only)
+CONF_CASES = {
+    "union": ("confs/synth_union_quality.conf", ["--shape", "union"]),
+    "grid": ("confs/synth_sphere_quality_grids.conf", ["--shape", "sphere"]),
+    "hdr": ("confs/synth_union_hdr.conf", ["--shape", "union", "--hdr"]),
+}
+_CONF_RUNS: dict = {}
+
+
+def _conf_run(dev, tmp_path_factory, case):
+    """(Trainer after cli/train.py --conf, launches of that call): one run
+    a case, cached for the module."""
+    if case not in _CONF_RUNS:
+        from monosdf_torch.cli import train as ctrain
+        from monosdf_torch.scripts import make_synthetic_scene
+
+        conf, gen_args = CONF_CASES[case]
+        root = tmp_path_factory.mktemp(f"conf_{case}")
+        make_synthetic_scene.main([str(root / "data"), "--n", "3", "--res", "32", *gen_args])
+        overlay = root / "cut.conf"
+        overlay.write_text("train{ max_total_iters = 3, checkpoint_freq = 100, plot_freq = 0 }\n"
+                           "plot{ resolution = 32 }\ndataset{ img_res = [32, 32] }\n")
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        trainer = ctrain.main(["--conf", str(Path(__file__).resolve().parent.parent / conf),
+                               "--conf_add", str(overlay), "--data_root", str(root / "data"),
+                               "--exps_root", str(root / "exps"), "--device", str(dev)])
+        torch.cuda.synchronize()
+        _CONF_RUNS[case] = (trainer, {k: v for k, v in build.launches.items() if v},
+                            dict(build.reference_launches))
+    return _CONF_RUNS[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CONF_CASES))
+def test_conf_run_launches_the_routed_kernels(dev, tmp_path_factory, monkeypatch, case):
+    """cli/train.py --conf (steps, the closing validation render and mesh):
+    every kernel config.routed_kernels names launches, no other, and the
+    order references none; the HDR conf (specular head) runs no K3, the
+    grid conf's encoding group its conf's 1.0x rate."""
+    from monosdf_torch.config import routed_kernels
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    trainer, launched, refs = _conf_run(dev, tmp_path_factory, case)
+    cfg = trainer.exp.model
+    assert trainer.step == 3 and set(launched) == set(routed_kernels(cfg)), launched
+    assert not any(refs.values())
+    if case == "hdr":
+        assert cfg.rendering.spec and "radiance_norm" not in launched
+    if case == "grid":
+        lrs = {id(p): g["lr"] for g in trainer.optimizer.adam.param_groups for p in g["params"]}
+        imp = trainer.model.implicit
+        assert lrs[id(imp.encoding.embeddings)] == lrs[id(imp.lin0.b)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["union", "grid"])
+def test_conf_step_matches_plain_at_fixed_samples(dev, tmp_path_factory, monkeypatch, case):
+    """The conf's model (perturbed) at one batch of its run, samples and
+    eikonal points fixed: the loss and every gradient with the kernels
+    against each kernel's plain version, at chip_smoke.py's bf16 step bars
+    (chip_smoke.step_check, which exits on a miss)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    trainer, _, _ = _conf_run(dev, tmp_path_factory, case)
+    exp = trainer.exp
+    check, counts = chip_smoke.step_check(f"conf {case}", exp.model,
+                                          trainer.sample_batch(exp.num_pixels), "bfloat16",
+                                          dev, exp.loss)
+    assert check["worst_grad_ratio"] <= 1.0
+    step_kernels = (("hash_encode", "sdf_grad_grid", "sdf_grad_grid_bwd", "hash_encode_bwd")
+                    if case == "grid" else ("sdf_grad", "sdf_grad_bwd", "radiance_norm",
+                                            "radiance_norm_bwd"))
+    assert all(counts[k] for k in step_kernels), counts
+
+
+@pytest.mark.cuda
+def test_metrics_writer_logs_images_without_pil(dev, tmp_path):
+    """Where tensorboard imports (the card's machine has it), the metrics
+    writer logs the dashboards' images as PNGs it encodes itself: no PIL
+    (nor cv2 or matplotlib) is imported, and the logged PNG decodes to the
+    image (the port's PNG reader)."""
+    code = (
+        "import sys, numpy as np\n"
+        "from monosdf_torch.viz import MetricsWriter\n"
+        "from monosdf_torch.data.png import read_png\n"
+        f"w = MetricsWriter({str(tmp_path)!r})\n"
+        "if w._tb is None:\n"
+        "    print('NO_TENSORBOARD'); sys.exit(0)\n"
+        "img = (np.arange(5 * 7 * 3) % 251).astype(np.uint8).reshape(5, 7, 3)\n"
+        "w.scalars({'loss': 0.5}, 1); w.image('x', img, 1); w.close()\n"
+        "bad = sorted({m.split('.')[0] for m in sys.modules} & {'PIL', 'cv2', 'matplotlib'})\n"
+        "assert not bad, bad\n"
+        "from tensorboard.backend.event_processing.event_accumulator import EventAccumulator\n"
+        f"ea = EventAccumulator({str(tmp_path)!r}, size_guidance={{'images': 0}}); ea.Reload()\n"
+        "png = ea.Images('x')[0].encoded_image_string\n"
+        f"open({str(tmp_path / 'x.png')!r}, 'wb').write(png)\n"
+        f"assert np.array_equal(read_png({str(tmp_path / 'x.png')!r}), img)\n"
+        "print('OK')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], check=True, capture_output=True, text=True,
+                         cwd=str(Path(__file__).resolve().parent.parent)).stdout
+    if "NO_TENSORBOARD" in out:
+        pytest.skip("tensorboard is not installed")
+    assert "OK" in out

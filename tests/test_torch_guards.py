@@ -1,8 +1,8 @@
 """The port's import and device guards: ``monosdf_torch`` (its bench
-``monosdf_torch.bench``, data layer, meshing, native marcher, metrics and
-scripts included) and ``chip_smoke.py`` import
-neither JAX nor the JAX package, nor cv2 or PIL (the card's machine has neither), and an
-entry point
+``monosdf_torch.bench``, data layer, meshing, native marcher, metrics,
+config, trainer, checkpoints, viz and scripts included) and ``chip_smoke.py`` import
+neither JAX nor the JAX package, nor cv2, PIL or matplotlib (the port depends on
+none of them), and an entry point
 needs a CUDA device unless the caller asks for the CPU. This file imports no
 JAX itself."""
 
@@ -29,8 +29,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import monosdf_torch.meshing, monosdf_torch.meshing.extract, monosdf_torch.meshing.marching\n"
         "import monosdf_torch.meshing.alt_extract, monosdf_torch.meshing.ply\n"
         "import monosdf_torch.native, monosdf_torch.eval, monosdf_torch.eval.metrics\n"
+        "import monosdf_torch.config, monosdf_torch.train.trainer, monosdf_torch.train.checkpoint\n"
+        "import monosdf_torch.viz, monosdf_torch.cli.common\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'monosdf_tpu', 'cv2', 'PIL')]\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'monosdf_tpu', 'cv2', 'PIL', 'matplotlib')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=str(REPO))
@@ -79,4 +81,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
         bench.main(["--grids"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.main(["--sweep_pe", "--steps", "1", "--rays", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrain.main(["--conf", "confs/synth_union_quality.conf"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        teval.main(["--conf", "confs/synth_union_quality.conf", "--checkpoint_dir", "none"])
     assert next(init_monosdf(cfg, device="cpu").parameters()).device.type == "cpu"
