@@ -210,7 +210,9 @@ def add_model_args(ap):
 
 def add_data_args(ap):
     """The scene flags of both entry points (``DatasetConfig``'s names)."""
-    ap.add_argument("--data_root", default="../data", help="the directory holding --data_dir")
+    ap.add_argument("--data_root", default="data",
+                    help="the directory holding --data_dir (default: data/ under the working "
+                         "directory; the JAX CLIs' default is ../data)")
     ap.add_argument("--data_dir", default=None,
                     help="a scene directory (scripts/make_synthetic_scene.py's layout); "
                          "default: the synthetic sphere")

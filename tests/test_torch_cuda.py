@@ -1542,3 +1542,84 @@ def test_metrics_writer_logs_images_without_pil(dev, tmp_path):
     if "NO_TENSORBOARD" in out:
         pytest.skip("tensorboard is not installed")
     assert "OK" in out
+
+
+def _analytic_mesh(res=48, radius=0.5):
+    from monosdf_torch.meshing.marching import marching_tetrahedra, weld_vertices
+
+    xs = np.linspace(-0.8, 0.8, res, dtype=np.float32)
+    g = np.stack(np.meshgrid(xs, xs, xs, indexing="ij"), -1)
+    v, f = marching_tetrahedra(np.linalg.norm(g, axis=-1) - radius,
+                               origin=np.full(3, -0.8, np.float32), spacing=xs[1] - xs[0])
+    return weld_vertices(v, f)
+
+
+def _look_at_ring(n=6, dist=2.0):
+    poses = []
+    for ang in np.linspace(0, 2 * np.pi, n, endpoint=False):
+        eye = np.array([dist * np.sin(ang), 0.3, -dist * np.cos(ang)])
+        z = -eye / np.linalg.norm(eye)
+        x = np.cross(np.array([0.0, 1.0, 0.0]), z)
+        x /= np.linalg.norm(x)
+        pose = np.eye(4)
+        pose[:3, :3] = np.stack([x, np.cross(z, x), z], axis=-1)
+        pose[:3, 3] = eye
+        poses.append(pose)
+    return poses
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [65536, 777])
+def test_rasterizer_on_the_card_matches_cpu(dev, chunk):
+    """The z-buffer on the card against the CPU's: the same covered pixels
+    (at most 2 edge pixels apart, tests/test_torch_mesh_eval.py's
+    allowance), depth within 1e-5 relative; at 64x80 and 480x640 (faces
+    subdivided on the host), whole chunks and a ragged tail."""
+    from monosdf_torch.mesh_eval import rasterize_depth
+
+    verts, faces = _analytic_mesh()
+    for H, W, f in ((64, 80, 90.0), (480, 640, 600.0)):
+        K = np.array([[f, 0, W / 2, 0], [0, f, H / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+        for pose in _look_at_ring(3):
+            a = rasterize_depth(verts, faces, K, pose, H, W, chunk=chunk, device="cpu")
+            b = rasterize_depth(verts, faces, K, pose, H, W, chunk=chunk, device=dev)
+            assert int(((a > 0) != (b > 0)).sum()) <= 2
+            both = (a > 0) & (b > 0)
+            assert both.sum() > 0.05 * a.size
+            np.testing.assert_allclose(b[both], a[both], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_tsdf_refuse_and_dilation_on_the_card_match_cpu(dev):
+    """The TSDF volume on the card against the CPU's after 6 views (each
+    product and sum rounded once on both: equal but for a voxel whose
+    pixel flipped, 1e-3 of them), the refused meshes' vertex counts within
+    1% and mean nearest-vertex distance within 1e-3 of a voxel; the mask
+    dilation bit for bit."""
+    from scipy.ndimage import binary_dilation as scipy_dilation
+    from scipy.spatial import cKDTree
+
+    from monosdf_torch.mesh_eval import TSDFVolume, rasterize_depth, refuse_mesh
+    from monosdf_torch.mesh_eval.cull import binary_dilation, disk_structure
+
+    verts, faces = _analytic_mesh()
+    K = np.array([[60.0, 0, 32, 0], [0, 60.0, 32, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    poses = _look_at_ring()
+    vols = {}
+    for d in ("cpu", dev):
+        vol = TSDFVolume(verts.min(0) - 0.05, verts.max(0) + 0.05, 0.02, device=d)
+        for pose in poses:
+            vol.integrate(rasterize_depth(verts, faces, K, pose, 64, 64, device="cpu"), K, pose)
+        vols[str(d)] = vol
+    a, b = vols["cpu"], vols[str(dev)]
+    for x, y in ((a.tsdf, b.tsdf), (a.weight, b.weight)):
+        assert (torch.abs(x - y.cpu()) > 1e-5).float().mean() <= 1e-3
+    va, fa = refuse_mesh(verts, faces, [K] * 6, poses, 64, 64, voxel=0.02, device="cpu")
+    vb, fb = refuse_mesh(verts, faces, [K] * 6, poses, 64, 64, voxel=0.02, device=dev)
+    assert len(vb) == pytest.approx(len(va), rel=0.01) and len(va) > 100
+    d = 0.5 * (cKDTree(va).query(vb)[0].mean() + cKDTree(vb).query(va)[0].mean())
+    assert d <= 1e-3 * 0.02
+    m = np.random.default_rng(0).uniform(size=(96, 128)) > 0.98
+    for r in (0, 3, 12):
+        np.testing.assert_array_equal(binary_dilation(m, disk_structure(r), device=dev),
+                                      scipy_dilation(m, structure=disk_structure(r)))

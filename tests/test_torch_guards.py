@@ -1,6 +1,7 @@
 """The port's import and device guards: ``monosdf_torch`` (its bench
 ``monosdf_torch.bench``, data layer, meshing, native marcher, metrics,
-config, trainer, checkpoints, viz and scripts included) and ``chip_smoke.py`` import
+config, trainer, checkpoints, viz, mesh benchmark suites, trajectory
+renderer and scripts included) and ``chip_smoke.py`` import
 neither JAX nor the JAX package, nor cv2, PIL or matplotlib (the port depends on
 none of them), and an entry point
 needs a CUDA device unless the caller asks for the CPU. This file imports no
@@ -31,6 +32,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import monosdf_torch.native, monosdf_torch.eval, monosdf_torch.eval.metrics\n"
         "import monosdf_torch.config, monosdf_torch.train.trainer, monosdf_torch.train.checkpoint\n"
         "import monosdf_torch.viz, monosdf_torch.cli.common\n"
+        "import monosdf_torch.mesh_eval, monosdf_torch.render, monosdf_torch.cli.eval_mesh\n"
+        "import monosdf_torch.cli.render, monosdf_torch.scripts.quality_run\n"
+        "import monosdf_torch.scripts.seed_study\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'monosdf_tpu', 'cv2', 'PIL', 'matplotlib')]\n"
         "assert not bad, bad\n"
@@ -85,4 +89,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
         ttrain.main(["--conf", "confs/synth_union_quality.conf"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         teval.main(["--conf", "confs/synth_union_quality.conf", "--checkpoint_dir", "none"])
+    from monosdf_torch.scripts import seed_study
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        seed_study.main(["--conf", "confs/synth_union_hdr.conf", "--data_root", "none"])
     assert next(init_monosdf(cfg, device="cpu").parameters()).device.type == "cpu"
