@@ -1623,3 +1623,28 @@ def test_tsdf_refuse_and_dilation_on_the_card_match_cpu(dev):
     for r in (0, 3, 12):
         np.testing.assert_array_equal(binary_dilation(m, disk_structure(r), device=dev),
                                       scipy_dilation(m, structure=disk_structure(r)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["area", "linear", "nearest", "cubic"])
+def test_resize_on_the_card_matches_cpu(dev, mode):
+    """ops/resize.py on the card against the CPU in each mode: uint8 equal
+    (integer arithmetic) but the area path at non-integer factors, which
+    rounds a float32 sum and may land a half on the other level (one
+    level), float32 within 1e-6 of the largest |value| (sums in another
+    order), at a factor of 2 down, non-integer down and up; and a tensor
+    stays on its device."""
+    from monosdf_torch.ops.resize import resize
+
+    rng = np.random.default_rng(0)
+    for src, dst in (((96, 128), (48, 64)), ((97, 131), (40, 55)), ((37, 53), (70, 101))):
+        for shape in (src, (*src, 3)):
+            a = rng.integers(0, 256, shape, dtype=np.uint8)
+            d = np.abs(resize(a, dst, mode, device=dev).astype(int)
+                       - resize(a, dst, mode, device="cpu").astype(int)).max()
+            assert d <= (1 if mode == "area" and src[0] % dst[0] else 0), (src, dst, d)
+            f = rng.uniform(-1, 2, shape).astype(np.float32)
+            np.testing.assert_allclose(resize(f, dst, mode, device=dev),
+                                       resize(f, dst, mode, device="cpu"), rtol=0, atol=2e-6)
+    out = resize(torch.from_numpy(f).to(dev), (11, 13), mode)
+    assert out.device.type == "cuda"

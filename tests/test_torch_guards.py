@@ -1,7 +1,7 @@
 """The port's import and device guards: ``monosdf_torch`` (its bench
 ``monosdf_torch.bench``, data layer, meshing, native marcher, metrics,
 config, trainer, checkpoints, viz, mesh benchmark suites, trajectory
-renderer and scripts included) and ``chip_smoke.py`` import
+renderer, data pipeline, tools and scripts included) and ``chip_smoke.py`` import
 neither JAX nor the JAX package, nor cv2, PIL or matplotlib (the port depends on
 none of them), and an entry point
 needs a CUDA device unless the caller asks for the CPU. This file imports no
@@ -35,6 +35,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import monosdf_torch.mesh_eval, monosdf_torch.render, monosdf_torch.cli.eval_mesh\n"
         "import monosdf_torch.cli.render, monosdf_torch.scripts.quality_run\n"
         "import monosdf_torch.scripts.seed_study\n"
+        "import monosdf_torch.ops.resize, monosdf_torch.data.jpeg, monosdf_torch.preprocess\n"
+        "import monosdf_torch.preprocess.common, monosdf_torch.preprocess.scannet\n"
+        "import monosdf_torch.preprocess.nice_slam, monosdf_torch.preprocess.dtu_pad\n"
+        "import monosdf_torch.preprocess.highres_stitch, monosdf_torch.preprocess.monocular_cues\n"
+        "import monosdf_torch.cli.preprocess, monosdf_torch.tools, monosdf_torch.tools.cleanup\n"
+        "import monosdf_torch.tools.transfer, monosdf_torch.scripts.extract_all_meshes\n"
+        "import monosdf_torch.scripts.witness\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'monosdf_tpu', 'cv2', 'PIL', 'matplotlib')]\n"
         "assert not bad, bad\n"
@@ -93,4 +100,14 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         seed_study.main(["--conf", "confs/synth_union_hdr.conf", "--data_root", "none"])
+    from monosdf_torch.cli import preprocess as tpre
+    from monosdf_torch.preprocess.monocular_cues import extract_cues
+
+    for cmd in (["scannet", "--scene_dir", "none"], ["nice-slam", "--scene_dir", "none"],
+                ["dtu-pad", "--in_dir", "none"], ["cues", "--images", "none"],
+                ["stitch", "--patch_dir", "none", "--n_frames", "1"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tpre.main([*cmd, "--out", "none"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract_cues([], "none", "depth", model=lambda x: x)
     assert next(init_monosdf(cfg, device="cpu").parameters()).device.type == "cpu"
