@@ -4,6 +4,7 @@
     python3 chip_smoke.py --kernels  # build and check the kernels only (probes included)
     python3 chip_smoke.py --witness 0,1 2,3  # the trained union model's float64 witness
                                              # statistics on those views, no gate
+    python3 chip_smoke.py --ddp      # build, then the data-parallel phase only
 
 Three models: the bench's ScanNet-MLP model (bench.py), also with its
 sweeps through K1-PE (sweep_pe_in_kernel, scripts/bench_step.py --sweep_pe),
@@ -168,16 +169,33 @@ CLIs' --conf path. Phases (any failure exits non-zero):
    queued back to back) and host time, R's copy floor (its rows' bytes at
    3.35 TB/s) and G's shared-memory floor (its reps' reads at 32 a clock
    on each SM);
-16. print a ``render``, a ``train``, a ``render_pe``, a ``train_pe``, a
+16. data parallelism (ddp_phase, monosdf_torch/parallel): (a) world size 1
+   over NCCL: 3 warm-up and 10 timed DDP steps of the MLP and grid models
+   (bf16, full width, distinct 1024-ray batches) in turns with the plain
+   step from the same weights, batches and generator seed, the parameters
+   bit-equal after every step and each step's launches phase 5's (7's),
+   ms a step both ways, a profile of each (busy share, the NCCL kernels'
+   device time), DDP's buckets and bytes reduced a step; (b) two spawned
+   ranks on cuda:0: NCCL's answer (expected: a refusal), then gloo over
+   CUDA tensors, one float32 step of the MLP model through the kernels with
+   each rank's draws fixed, against the serial emulation in this process
+   (each chunk alone, the gradients averaged, one Adam step) at atol 1e-6
+   (the grid model's K5 adds with float atomics: not run there); (c)
+   parallel.dryrun_ddp(1): one step of the flagship grids program at full
+   size (1024 rays), a finite loss, launching exactly the kernels
+   config.routed_kernels names; a worker that fails or outlives
+   DDP_DEADLINE_S fails the phase;
+17. print a ``render``, a ``train``, a ``render_pe``, a ``train_pe``, a
    ``render_grids``, a ``train_grids``,
    a ``render_codes``, a ``train_codes``, a ``render_codes_split``, a
    ``train_codes_split``, a ``scene``, a ``mesh``, the ``conf``,
    ``conf_grids`` and ``conf_hdr``, a ``quality`` line per quality run, a
-   ``mesh_eval``, a ``render_traj``, a ``preprocess``, a ``nerf_radiance``
-   and a ``probes`` JSON line, the ``kernels`` JSON line (each kernel's
-   launches on every main path, ``launches_conf*`` those of the conf runs,
-   ``launches_quality`` those of the quality runs, ``launches_preprocess``
-   the data pipeline's), the card line
+   ``mesh_eval``, a ``render_traj``, a ``preprocess``, a ``nerf_radiance``,
+   a ``probes`` and a ``ddp`` JSON line, the ``kernels`` JSON line (each
+   kernel's launches on every main path, ``launches_conf*`` those of the
+   conf runs, ``launches_quality`` those of the quality runs,
+   ``launches_preprocess`` the data pipeline's, ``launches_ddp`` the DDP
+   steps' and the dryrun's), the card line
    (nvidia-smi's name and power limit), and last the result line.
 """
 
@@ -1729,9 +1747,13 @@ def _profile(fn, reps: int, what: str) -> dict:
             end.record()
             torch.cuda.synchronize()
         # the device's own events only: an operator's entry repeats the time
-        # of the kernels it launched
+        # of the kernels it launched, and a record_function range (DDP's
+        # forward, Adam's step) shows on the device's timeline as a span over
+        # the kernels inside it
         averages = prof.key_averages()
-        dev_events = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
+        ranges = {e.key for e in averages if e.device_type == torch.autograd.DeviceType.CPU}
+        dev_events = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.key not in ranges and not getattr(e, "is_user_annotation", False)]
         per_name = {e.key: e.self_device_time_total / 1e3 / reps for e in dev_events}  # from us
         busy = sum(per_name.values())
         if busy > 0:
@@ -1765,7 +1787,14 @@ def _profile(fn, reps: int, what: str) -> dict:
     for e in averages:
         if e.device_type == torch.autograd.DeviceType.CPU:
             host[e.key[:60]] = host.get(e.key[:60], 0.0) + e.self_cpu_time_total / 1e3 / reps
+    # the collectives' kernels (NCCL's all-reduce of a DDP step)
+    nccl = [k for k in per_name if "nccl" in k.lower()]
+    nccl_host = sum(e.count for e in averages
+                    if e.device_type == torch.autograd.DeviceType.CPU and "nccl" in e.key.lower())
     return {"ms": ms, "device_busy_ms": busy, "busy_share": busy / ms, "kernels_ms": kern,
+            "nccl_ms": sum(per_name[k] for k in nccl),
+            "nccl_events": sum(count[k] for k in nccl) / reps,
+            "nccl_host_events": nccl_host / reps,
             "device_events_per_call": sum(e.count for e in dev_events) / reps,
             "host_top_ms": dict(sorted(host.items(), key=lambda kv: -kv[1])[:6]),
             "kernel_events": {n: c for n, c in events.items() if c},
@@ -3669,6 +3698,325 @@ def probes_phase(dev, results):
             "device_limits": lim, "cases": cases}
 
 
+# the data-parallel phase (ddp_phase): the port's DDP step (monosdf_torch/
+# parallel) at world size 1 over NCCL against the plain step, two ranks on
+# the one card, and the flagship dryrun
+DDP_WARMUP, DDP_TIMED = 3, 10
+DDP_MODELS = {"mlp": PER_STEP, "grids": PER_STEP_GRIDS}
+# the world-size-2 check against its serial emulation: JAX's bar
+# (tests/test_train.py:252); two ranks' gradients average exactly in float32
+# (g/2 is exact and a sum of two is commutative), so the bar sits far above
+# what a right average gives
+DDP_SERIAL_ATOL = 1e-6
+# the grid model's table gradient, DDP step against the plain step from one
+# state, per tensor |a - b| <= DDP_TABLE_RTOL max|b|: K5's float32 atomic
+# sums of the same terms in another order (ENCODE_BWD_TOL's float32 rtol)
+DDP_TABLE_RTOL = 1e-4
+DDP_DEADLINE_S = 240.0  # a spawn of two ranks is joined within this, then killed
+DDP_NCCL_DEADLINE_S = 60.0  # NCCL's two ranks on one card answer (refuse) within this
+
+
+def _param_bits_differ(a, b) -> list:
+    """The names of the parameters whose bits differ between two models."""
+    pb = dict(b.named_parameters())
+    return [n for n, p in a.named_parameters() if not bits_equal(p.detach(), pb[n].detach())]
+
+
+def _sync_state(dst, src, generators):
+    """(model, optimizer) ``dst`` set to ``src``'s parameters and Adam state,
+    and each generator of ``generators[1:]`` to the first's state."""
+    import copy
+
+    with torch.no_grad():
+        for p, q in zip(dst[0].parameters(), src[0].parameters()):
+            p.copy_(q)
+    dst[1].adam.load_state_dict(copy.deepcopy(src[1].adam.state_dict()))
+    for g in generators[1:]:
+        g.set_state(generators[0].get_state())
+
+
+def _ddp_ws1(dev, which: str, lines: dict) -> dict:
+    """World size 1 over NCCL: the DDP step and the plain step (cli/train.py's)
+    from the same weights on the same batches, draws from equal generators,
+    in turns; launches per DDP step as the plain step's; ms a step both
+    ways; a profile of each (busy share, the NCCL kernels' device time);
+    DDP's buckets. The MLP model: the parameters bit-equal after every step.
+    The grid model: K5 adds the table's gradient with float atomics, so two
+    plain steps give other table bits now and then, and every parameter
+    follows from the next step on; so each step starts the DDP model and a
+    second plain model from the first's state, every other parameter is
+    bit-equal after it, and the table's gradient within DDP_TABLE_RTOL of
+    the plain step's (the second plain step's spread printed beside)."""
+    from monosdf_torch.cli.train import ray_batches
+    from monosdf_torch.data.synthetic import make_synthetic_sphere_scene
+    from monosdf_torch.kernels import build
+    from monosdf_torch.losses import LossConfig
+    from monosdf_torch.models.monosdf import init_monosdf
+    from monosdf_torch.parallel import ddp
+    from monosdf_torch.train import OptimConfig, make_optimizer, make_train_step
+
+    per_step = DDP_MODELS[which]
+    atomic = per_step["hash_encode_bwd"] > 0
+    cfg = path_config(which, "bfloat16")
+    loss_cfg = LossConfig(if_gamma_loss=cfg.rendering.if_hdr)
+    ocfg = OptimConfig(grid_mode=cfg.implicit.use_grid)
+    scene = make_synthetic_sphere_scene(n_images=4, img_res=64)
+    batches = ray_batches(scene, np.random.default_rng(SEED + 20), DDP_WARMUP + DDP_TIMED,
+                          CHUNK, dev)
+    runs = {}  # tag -> (model, optimizer, step function, module the step takes, generator)
+    for tag in ("plain", "plain2", "ddp") if atomic else ("plain", "ddp"):
+        model = init_monosdf(cfg, seed=SEED, device=dev)
+        opt = make_optimizer(ocfg, model.named_parameters())
+        if tag == "ddp":
+            runs[tag] = (model, opt, ddp.make_parallel_train_step(cfg, loss_cfg, opt),
+                         ddp.replicate(model), ddp.rank_generator(SEED, 0, dev))
+        else:
+            runs[tag] = (model, opt, make_train_step(cfg, loss_cfg, opt), model,
+                         torch.Generator(device=dev).manual_seed(SEED))
+    what = f"ddp ws1 {which}"
+    times, counts, table = {"plain": [], "ddp": []}, {}, {"err": 0.0, "spread": 0.0}
+    for i, b in enumerate(batches):
+        if atomic and i:
+            for tag in ("plain2", "ddp"):
+                _sync_state(runs[tag][:2], runs["plain"][:2],
+                            [runs["plain"][4], runs[tag][4]])
+        for tag, (model, opt, fn, module, gen) in runs.items():
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            metrics = fn(module, b, generator=gen)
+            torch.cuda.synchronize()
+            if i >= DDP_WARMUP and tag in times:
+                times[tag].append((time.perf_counter() - t0) * 1e3)
+            got = launch_counts()
+            if got != per_step:
+                fail(f"{what} {tag} step {i}: launches {_nonzero(got)} != {_nonzero(per_step)}")
+            if tag == "ddp":
+                for k, v in got.items():
+                    counts[k] = counts.get(k, 0) + v
+            if not math.isfinite(float(metrics["loss"])):
+                fail(f"{what} {tag} step {i}: non-finite loss")
+        ref = dict(runs["plain"][0].named_parameters())
+        differ = [n for n in _param_bits_differ(runs["ddp"][0], runs["plain"][0])
+                  if not (atomic and "encoding" in n)]
+        if differ:
+            worst = max(float((p.detach().float() - ref[n].detach().float()).abs().max())
+                        for n, p in runs["ddp"][0].named_parameters() if n in differ)
+            fail(f"{what} step {i}: parameters not bit-equal to the plain step's: {differ} "
+                 f"(max abs {worst:.3e})")
+        if atomic:
+            name = next(n for n in ref if "encoding" in n)
+            g_ref = ref[name].grad
+            scale = float(g_ref.abs().max())
+            for tag, key in (("ddp", "err"), ("plain2", "spread")):
+                d = float((dict(runs[tag][0].named_parameters())[name].grad - g_ref).abs().max())
+                # (a zero gradient, as at the geometric init's first step, must stay zero)
+                table[key] = max(table[key], d / scale if scale else (math.inf if d else 0.0))
+            if table["err"] > DDP_TABLE_RTOL:
+                fail(f"{what} step {i}: the table's gradient {table['err']:.3e} of its largest "
+                     f"entry from the plain step's (bar {DDP_TABLE_RTOL})")
+    model, _, step, ddp_model, g_ddp = runs["ddp"]
+    plain_model, _, plain_step, _, g_plain = runs["plain"]
+    info = {"steps": len(batches), "warmup": DDP_WARMUP,
+            "bit_equal": "every parameter, every step" if not atomic else
+            "every parameter but the table, each step from the plain step's state",
+            "ms_per_step": float(np.mean(times["ddp"])),
+            "plain_ms_per_step": float(np.mean(times["plain"])),
+            "ms_per_step_each": times["ddp"], "plain_ms_per_step_each": times["plain"],
+            "launches_per_step": _nonzero(per_step), "loss_last": float(metrics["loss"])}
+    if atomic:
+        info["table_grad_rel_err"] = table["err"]
+        info["table_grad_rel_spread_plain"] = table["spread"]
+    log = ddp_model._get_ddp_logging_data()
+    buckets = [int(v) for v in str(log.get("bucket_sizes", "")).split(",") if v.strip()]
+    info.update(backend=log.get("backend_name"), buckets=len(buckets),
+                bucket_bytes=buckets, bytes_reduced_per_step=sum(buckets),
+                num_buckets_reduced=log.get("num_buckets_reduced"),
+                parameter_bytes=log.get("total_parameter_size_bytes"))
+    prof_ddp = _profile(lambda: step(ddp_model, batches[0], generator=g_ddp), 1, what)
+    prof_plain = _profile(lambda: plain_step(plain_model, batches[0], generator=g_plain), 1,
+                          what + " plain")
+    keys = ("ms", "device_busy_ms", "busy_share", "nccl_ms", "nccl_events", "nccl_host_events",
+            "other_top_ms", "host_top_ms")
+    info["profile"] = {k: prof_ddp[k] for k in keys}
+    info["profile_plain"] = {k: prof_plain[k] for k in keys}
+    info["allreduce_device_ms_per_step"] = prof_ddp["nccl_ms"]
+    print(f"{what}: {len(batches)} steps in turns with the plain step, bit-equal: "
+          f"{info['bit_equal']}; table gradient {table}; "
+          f"{info['ms_per_step']:.3f} ms/step (plain {info['plain_ms_per_step']:.3f}); "
+          f"{info['buckets']} buckets, {info['bytes_reduced_per_step']} bytes a step; NCCL "
+          f"{prof_ddp['nccl_ms']:.4f} ms device a step ({prof_ddp['nccl_events']} device and "
+          f"{prof_ddp['nccl_host_events']} host events); busy {prof_ddp['device_busy_ms']:.3f} "
+          f"of {prof_ddp['ms']:.3f} ms (plain {prof_plain['device_busy_ms']:.3f} of "
+          f"{prof_plain['ms']:.3f})", flush=True)
+    lines[which] = info
+    del runs, plain_model, model, ddp_model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _ddp_nccl_two_ranks(rank: int, world_size: int, store_dir: str):
+    """A rank of NCCL's two-ranks-on-one-card check: its answer to one
+    all-reduce, in <store_dir>/nccl_<rank>.txt."""
+    from monosdf_torch.parallel import ddp
+
+    try:
+        ddp.init_group(rank, world_size, store_dir, "cuda:0", backend="nccl")
+        t = torch.ones(4, device="cuda:0")
+        torch.distributed.all_reduce(t)
+        torch.cuda.synchronize()
+        answer = f"accepted: {t.tolist()}"
+    except Exception as e:  # the refusal is this check's expected answer
+        answer = f"refused: {type(e).__name__}: {e}"
+    with open(os.path.join(store_dir, f"nccl_{rank}.txt"), "w") as f:
+        f.write(answer)
+    os._exit(0)  # no teardown of a communicator that may have failed to form
+
+
+def _ddp_gloo_rank(rank: int, world_size: int, store_dir: str):
+    """A rank of the two-ranks-on-one-card step: gloo over CUDA tensors,
+    the float32 MLP model through the kernels, one DDP step on its chunk
+    with its fixed draws; its averaged gradients and parameters saved."""
+    from monosdf_torch.cli.train import ray_batches
+    from monosdf_torch.data.synthetic import make_synthetic_sphere_scene
+    from monosdf_torch.kernels import build
+    from monosdf_torch.losses import LossConfig
+    from monosdf_torch.parallel import ddp
+    from monosdf_torch.train import OptimConfig, make_optimizer
+
+    dev = ddp.init_group(rank, world_size, store_dir, "cuda:0", backend="gloo")
+    cfg = path_config("mlp", "float32")
+    model = perturbed_model(cfg, dev)
+    scene = make_synthetic_sphere_scene(n_images=4, img_res=64)
+    (batch,) = ray_batches(scene, np.random.default_rng(SEED + 30), 1, 2 * CHUNK, dev)
+    opt = make_optimizer(OptimConfig(), model.named_parameters())
+    step = ddp.make_parallel_train_step(cfg, LossConfig(), opt)
+    build.reset_launch_counts()
+    metrics = step(ddp.replicate(model), ddp.shard_batch(batch, rank, world_size),
+                   generator=torch.Generator(device=dev).manual_seed(SEED + 40 + rank))
+    torch.cuda.synchronize()
+    torch.save({"grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+                "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+                "loss": float(metrics["loss"]), "launches": launch_counts()},
+               os.path.join(store_dir, f"gloo_{rank}.pt"))
+
+
+def _ddp_ws2(dev) -> dict:
+    """World size 2 on the one card: NCCL's answer to two ranks on one
+    device, then the gloo step (float32 MLP model, kernels) against its
+    serial emulation (each rank's chunk on the card alone in this process,
+    the gradients averaged, one Adam step)."""
+    import tempfile
+
+    from monosdf_torch.cli.train import ray_batches
+    from monosdf_torch.data.synthetic import make_synthetic_sphere_scene
+    from monosdf_torch.losses import LossConfig
+    from monosdf_torch.parallel import ddp
+    from monosdf_torch.train import OptimConfig, make_optimizer
+    from monosdf_torch.train.step import step_losses
+
+    info = {}
+    with tempfile.TemporaryDirectory(prefix="ddp-nccl-") as store:
+        t0 = time.perf_counter()
+        try:
+            ddp.spawn(_ddp_nccl_two_ranks, 2, store_dir=store, timeout_s=DDP_NCCL_DEADLINE_S)
+        except TimeoutError as e:
+            fail(f"ddp ws2: NCCL with two ranks on one card gave no answer: {e}")
+        answers = [open(os.path.join(store, f"nccl_{r}.txt")).read() for r in range(2)]
+        info["nccl_two_ranks_one_card"] = answers
+        info["nccl_check_s"] = time.perf_counter() - t0
+    print(f"ddp ws2: NCCL with two ranks on cuda:0: {answers}", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="ddp-gloo-") as store:
+        t0 = time.perf_counter()
+        ddp.spawn(_ddp_gloo_rank, 2, store_dir=store, timeout_s=DDP_DEADLINE_S)
+        info["gloo_step_s"] = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(store, f"gloo_{r}.pt")) for r in range(2)]
+    cfg = path_config("mlp", "float32")
+    scene = make_synthetic_sphere_scene(n_images=4, img_res=64)
+    (batch,) = ray_batches(scene, np.random.default_rng(SEED + 30), 1, 2 * CHUNK, dev)
+    grads = []
+    for r in range(2):
+        model = perturbed_model(cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 40 + r)
+        step_losses(model, cfg, LossConfig(), ddp.shard_batch(batch, r, 2), 0,
+                    generator=gen)["loss"].backward()
+        grads.append({n: p.grad.detach().clone() for n, p in model.named_parameters()})
+    model = perturbed_model(cfg, dev)
+    adam, schedule = make_optimizer(OptimConfig(), model.named_parameters())
+    for n, p in model.named_parameters():
+        p.grad = (grads[0][n] + grads[1][n]) / 2
+    adam.step()
+    schedule.step()
+    err_g = err_p = 0.0
+    for n, p in model.named_parameters():
+        for r in range(2):
+            err_g = max(err_g, float((ranks[r]["grads"][n].to(dev) - p.grad).abs().max()))
+            err_p = max(err_p, float((ranks[r]["params"][n].to(dev) - p.detach()).abs().max()))
+    same = all(torch.equal(v, ranks[1]["params"][n]) for n, v in ranks[0]["params"].items())
+    info.update(backend="gloo", dtype="float32", rays_per_rank=CHUNK,
+                grad_max_abs_err=err_g, update_max_abs_err=err_p, ranks_bit_equal=same,
+                loss=ranks[0]["loss"], launches_per_rank=_nonzero(ranks[0]["launches"]),
+                atomics="K5 (hash_encode_bwd) adds with float atomics: the grid model is not run "
+                        "here; the MLP path's kernels add in a fixed order")
+    print(f"ddp ws2 gloo on cuda:0: averaged gradients {err_g:.3e} and updated parameters "
+          f"{err_p:.3e} from the serial emulation (bar {DDP_SERIAL_ATOL}); ranks equal {same}; "
+          f"launches a rank {info['launches_per_rank']}", flush=True)
+    for r in ranks:
+        if r["launches"] != PER_STEP:
+            fail(f"ddp ws2: a rank's launches {_nonzero(r['launches'])} != {_nonzero(PER_STEP)}")
+    if not same or err_g > DDP_SERIAL_ATOL or err_p > DDP_SERIAL_ATOL:
+        fail("ddp ws2: the two-rank step is not the serial emulation's")
+    return info
+
+
+def ddp_phase(dev) -> dict:
+    """The data-parallel phase: (a) world size 1 over NCCL, the MLP and grid
+    models (_ddp_ws1); (b) two ranks on the one card (_ddp_ws2); (c)
+    parallel.dryrun_ddp(1), the flagship program at full size, launching
+    exactly the kernels config.routed_kernels names. launches: the DDP steps
+    of (a) and the dryrun's."""
+    import tempfile
+
+    from monosdf_torch.kernels import build
+    from monosdf_torch.models.monosdf import routed_kernels
+    from monosdf_torch.parallel import ddp, dryrun
+
+    t_phase = time.perf_counter()
+    line = {"ws1": {}}
+    counts = dict.fromkeys(build.KERNELS, 0)
+    with tempfile.TemporaryDirectory(prefix="ddp-ws1-") as store:
+        ddp.init_group(0, 1, store, dev)  # NCCL, the production backend
+        try:
+            for which in DDP_MODELS:
+                for k, v in _ddp_ws1(dev, which, line["ws1"]).items():
+                    if k in counts:
+                        counts[k] += v
+        finally:
+            torch.distributed.destroy_process_group()
+    line["ws2"] = _ddp_ws2(dev)
+
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = dryrun.dryrun_ddp(1, device=dev, rays_per_rank=CHUNK)
+    torch.cuda.synchronize()
+    got = launch_counts()
+    routed = set(routed_kernels(dryrun.flagship_config()))
+    line["dryrun"] = {"loss": loss, "s": time.perf_counter() - t0, "rays": CHUNK,
+                      "launches": _nonzero(got), "routed": sorted(routed)}
+    print(f"dryrun_ddp(1) on the card: loss {loss:.5f}, launches {_nonzero(got)} (routed "
+          f"{sorted(routed)})", flush=True)
+    if set(_nonzero(got)) != routed or not math.isfinite(loss):
+        fail(f"dryrun_ddp(1): launches {_nonzero(got)} not the routed kernels {sorted(routed)}")
+    for k, v in got.items():
+        if k in counts:
+            counts[k] += v
+    line["launches"] = counts
+    line["s"] = time.perf_counter() - t_phase
+    print(f"ddp phase: {line['s']:.1f} s", flush=True)
+    return line
+
+
 def main(argv):
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -3706,6 +4054,9 @@ def main(argv):
     if not all(bulk_store.values()):
         fail(f"C's library has no bulk store (UBLKCP.G.S) in its SASS: {bulk_store}")
 
+    if "--ddp" in argv:
+        print(json.dumps({"ddp": ddp_phase(dev)}))
+        return
     if "--witness" in argv:
         groups = [tuple(int(v) for v in g.split(",")) for g in argv[argv.index("--witness") + 1:]]
         print(json.dumps({"witness_study": witness_study(dev, groups)}))
@@ -3750,6 +4101,7 @@ def main(argv):
     lines["preprocess"] = preprocess_phase(dev)
     lines["nerf_radiance"] = nerf_phase(dev)
     lines["probes"] = probes_phase(dev, results)
+    lines["ddp"] = ddp_phase(dev)
     for name in bulk:
         results[name]["sass_ublkcp"] = bulk[name]
     results["probe_capacity"]["sass_ublkcp_g_s"] = bulk_store["probe_capacity"]

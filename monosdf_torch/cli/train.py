@@ -37,8 +37,22 @@ and a mesh at the end, under ``<exps_root>/<timestamp>-<prefix><expname>
 <suffix>``. ``--profile_dir`` writes a ``torch.profiler`` trace of the first
 50 steps there (``trace.json``).
 
+Data parallelism (``--conf`` runs; ``parallel``, DDP): ``--n_devices N``
+trains on N cards of this machine, one spawned worker a card, each rank on
+its contiguous share of a global batch of N x ``num_pixels`` rays (0, the
+default, takes every local card; 1 on the CPU; more cards than exist
+raise, and no card takes two ranks); ``--device cpu --n_devices N`` runs N
+gloo workers on the CPU. ``--multihost`` joins the group that ``torchrun``
+describes (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``), one process a card, as ``jax.distributed.initialize()``
+does for the JAX CLI. Rank 0 writes the run directory's files.
+
     python -m monosdf_torch.cli.train --conf confs/synth_union_quality.conf \
         --data_root scenes --exps_root exps [--conf_add overlay.conf] [--resume] [--max_iters N]
+    python -m monosdf_torch.cli.train --conf confs/synth_union_quality.conf \
+        --data_root scenes --n_devices 2            # two cards, DDP over NCCL
+    torchrun --nnodes 2 --nproc_per_node 8 --rdzv_backend c10d --rdzv_endpoint HOST:29500 \
+        -m monosdf_torch.cli.train --conf confs/scannet_mlp.conf --multihost   # across machines
     python -m monosdf_torch.cli.train --steps 20 --out trained.npz
     python -m monosdf_torch.cli.train --grids --steps 20 --out trained_grids.npz
     python -m monosdf_torch.cli.train --union --steps 20 --out trained_union.npz
@@ -61,6 +75,7 @@ from ..data.synthetic import make_synthetic_sphere_scene, sample_ray_batch
 from ..device import resolve_device
 from ..losses import LossConfig
 from ..models.monosdf import init_monosdf
+from ..parallel.ddp import init_group, spawn, world
 from ..params import load_jax_params, load_params_npz, params_to_tree, save_params_npz
 from ..train import OptimConfig, make_optimizer, make_train_step
 from .eval import (add_data_args, add_model_args, bench_config, dataset_config, model_config,
@@ -114,20 +129,53 @@ def add_conf_args(ap):
     ap.add_argument("--append", default="", help="expname suffix (exp_runner.py:26)")
     ap.add_argument("--timestamp", default=None)
     ap.add_argument("--max_iters", type=int, default=None)
-    ap.add_argument("--n_devices", type=int, default=1, help="more than 1 is not ported yet")
+    ap.add_argument("--n_devices", type=int, default=0,
+                    help="ranks of a data-parallel run: 0 = all local cards (1 on the CPU); "
+                         "with --device cpu, N gloo workers")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the process group torchrun describes (env://)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile_dir", default=None,
                     help="write a torch.profiler trace of the first 50 steps")
 
 
+def local_devices(device) -> int:
+    """The ranks ``--n_devices 0`` means: every card of this machine, 1 on the CPU."""
+    dev = resolve_device(device)
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def _conf_rank(rank: int, world_size: int, store_dir: str, args):
+    """A spawned rank of ``--n_devices N``: card ``rank`` (or the CPU) in the group."""
+    dev = torch.device("cpu") if resolve_device(args.device).type == "cpu" else \
+        torch.device("cuda", rank)
+    conf_run(args, init_group(rank, world_size, store_dir, dev))
+
+
 def conf_main(args):
-    """Train the model of ``--conf`` (monosdf_tpu/cli/train.py main);
-    returns the Trainer."""
+    """Train the model of ``--conf`` (monosdf_tpu/cli/train.py main): in
+    this process, or with ``--n_devices N`` > 1 in N spawned ranks, or with
+    ``--multihost`` as a rank of torchrun's group. Returns the Trainer (None
+    from the spawning process)."""
+    if args.multihost:
+        return conf_run(args, init_group(device=args.device))
+    n = args.n_devices or local_devices(args.device)
+    if n > 1:
+        if resolve_device(args.device).type == "cuda" and n > torch.cuda.device_count():
+            raise ValueError(f"--n_devices {n}: {torch.cuda.device_count()} cards present")
+        spawn(_conf_rank, n, (args,))
+        return None
+    return conf_run(args, resolve_device(args.device))
+
+
+def conf_run(args, device):
+    """Train the model of ``--conf`` on ``device``, inside the default
+    process group where there is one (a DDP rank)."""
     from ..config import build_configs, load_conf
     from ..train.trainer import Trainer
     from .common import dataset_config_from_conf
 
-    device = resolve_device(args.device)
+    rank, n_ranks = world()
     exp = build_configs(load_conf(args.conf, args.conf_add))
     train_ds = SceneDataset(dataset_config_from_conf(exp.dataset, args.data_root, args.scan_id,
                                                      "train"))
@@ -149,7 +197,7 @@ def conf_main(args):
         load_from=args.load_from,
         timestamp=args.timestamp,
         seed=args.seed,
-        n_devices=args.n_devices,
+        n_devices=n_ranks,
         scale=train_ds.scale,
         center=train_ds.center,
         device=device,
@@ -161,11 +209,13 @@ def conf_main(args):
         with torch.profiler.profile(activities=acts) as prof:
             trainer.train(max_iters=min(50, args.max_iters or 50))
         os.makedirs(args.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+        if rank == 0:
+            prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
     trainer.train(max_iters=args.max_iters)
-    if val_images:
-        print("val:", trainer.validate())
-    print("mesh:", trainer.export_mesh()[0])
+    if rank == 0:
+        if val_images:
+            print("val:", trainer.validate())
+        print("mesh:", trainer.export_mesh()[0])
     return trainer
 
 

@@ -6,7 +6,10 @@ values by one sort; beta bisection, error bound and the next pdf per round
 (``kernels/sampler_machinery.py``, K4 with ``machinery='pallas'``, its
 plain version at float32 with ``'jnp'``); a final inverse-CDF draw, the
 near/far and extra samples, and a last sort. Eval mode draws with
-``linspace`` only.
+``linspace`` only. With ``inverse_sphere_bg`` (NeRF++'s background, carried
+from VolSDF; no shipped conf sets it) the extra samples' far is the ray's
+exit from the scene sphere, and ``inverse_sphere_bg_z_vals`` gives the
+background's samples.
 
 Training mode draws at random, as the JAX function does: the stratified
 jitter of the uniform init (``t_rand``, (R, N_samples_eval) in [0, 1)), the
@@ -47,8 +50,10 @@ class SamplerConfig:
     add_tiny: float = 1.0e-6
     # how the uniform init finds `far`: 'cube', 'sphere' or 'none'
     intersection: str = "cube"
-    # NeRF++ background samples come with a later slice
+    # NeRF++ background: the final tail's far is the scene sphere's exit, and
+    # inverse_sphere_bg_z_vals draws N_samples_inverse_sphere background samples
     inverse_sphere_bg: bool = False
+    N_samples_inverse_sphere: int = 0
     # 'pallas': K4 at machinery_dtype; 'jnp': its plain version at float32
     machinery: str = "jnp"
     machinery_dtype: str = "bfloat16"
@@ -59,8 +64,6 @@ class SamplerConfig:
                 f"unknown sampler machinery {self.machinery!r}; valid: 'jnp', 'pallas' "
                 "('pallas_fused' was measured-rejected and removed)"
             )
-        if self.inverse_sphere_bg:
-            raise NotImplementedError("inverse-sphere background samples")
 
     @property
     def far_value(self) -> float:
@@ -170,10 +173,15 @@ def extra_sample_indices(n_buf: int, n_extra: int, device=None) -> torch.Tensor:
 
 def _final_tail(z_vals, samples, rays_o, rays_d, cfg: SamplerConfig, extra_idx=None):
     """near/far + N_samples_extra picked from the merged buffer (at
-    ``extra_idx`` when given, else eval's linspace pick), final sort."""
+    ``extra_idx`` when given, else eval's linspace pick), final sort. With
+    ``inverse_sphere_bg`` the far is where the ray exits the scene sphere."""
     R = rays_o.shape[0]
     kw = {"dtype": rays_o.dtype, "device": rays_o.device}
-    parts = [torch.full((R, 1), cfg.near, **kw), torch.full((R, 1), cfg.far_value, **kw)]
+    if cfg.inverse_sphere_bg:
+        far = get_sphere_intersections(rays_o, rays_d, r=cfg.scene_bounding_sphere)[:, 1:]
+    else:
+        far = torch.full((R, 1), cfg.far_value, **kw)
+    parts = [torch.full((R, 1), cfg.near, **kw), far]
     if cfg.N_samples_extra > 0:
         if extra_idx is None:
             extra_idx = extra_sample_indices(z_vals.shape[1], cfg.N_samples_extra, rays_o.device)
@@ -257,3 +265,24 @@ def error_bound_z_vals(sdf_fn: Callable, rays_o, rays_d, beta0, cfg: SamplerConf
         return _final_tail(z_vals, samples, rays_o, rays_d, cfg)
     z_final = _final_tail(z_vals, samples, rays_o, rays_d, cfg, draws["extra_idx"])
     return z_final, torch.gather(z_final, 1, draws["eik_idx"])
+
+
+def inverse_sphere_bg_z_vals(rays_o, rays_d, cfg: SamplerConfig, training: bool, u=None,
+                             generator=None) -> torch.Tensor:
+    """NeRF++ background samples in inverted-sphere space
+    (monosdf_tpu/ops/sampler.py ``inverse_sphere_bg_z_vals``): a linspace on
+    [0, 1] (the 1/r parameter of the outer volume), stratified-jittered in
+    training by the uniforms ``u`` (R, N_samples_inverse_sphere) in [0, 1),
+    drawn from ``generator`` when not given, scaled by
+    1/scene_bounding_sphere. Returns (R, N_samples_inverse_sphere)."""
+    R = rays_o.shape[0]
+    n = cfg.N_samples_inverse_sphere
+    z = linspace(0.0, 1.0, n, device=rays_o.device)[None].expand(R, n).to(rays_o.dtype)
+    if training:
+        mids = 0.5 * (z[..., 1:] + z[..., :-1])
+        upper = torch.cat([mids, z[..., -1:]], dim=-1)
+        lower = torch.cat([z[..., :1], mids], dim=-1)
+        if u is None:
+            u = torch.rand(R, n, generator=generator, device=rays_o.device, dtype=rays_o.dtype)
+        z = lower + (upper - lower) * u
+    return (z * (1.0 / cfg.scene_bounding_sphere)).detach()

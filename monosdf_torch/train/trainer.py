@@ -20,8 +20,22 @@ Reference: code/training/monosdf_train.py (MonoSDFTrainRunner.__init__/run,
 
 The sampler's and the eikonal draws come from a ``torch.Generator`` on the
 model's device, seeded with ``seed``. The model runs on ``cuda`` unless
-``device='cpu'``; more than one device raises (data parallelism is not
-ported yet).
+``device='cpu'``.
+
+Data parallelism (``parallel``, the JAX trainer's ``n_devices > 1``
+branch): inside a process group (``parallel.init_group``; ``cli/train.py
+--n_devices N`` or ``--multihost`` makes one) the model runs under DDP on
+the rank's device. Every rank draws the global batch of ``num_pixels * W``
+rays from ``np.random.default_rng(seed)`` and keeps its contiguous rows
+(``parallel.shard_batch``), so the global batches are the JAX trainer's;
+each rank draws its samples from its own generator
+(``parallel.rank_generator``, rank 0's the single-device stream). The log's
+metrics are the mean over ranks and ``rays_per_sec`` counts the global
+batch; the divergence guard reads the mean loss, so every rank stops
+together. Only rank 0 writes the checkpoints, plots, meshes, TensorBoard
+and ``metrics.jsonl``, and the ranks wait for it after each; resume and
+``load_from`` restore every rank (DDP broadcasts parameters, not Adam's
+moments). One step per call, as the JAX trainer's sharded path.
 """
 
 from __future__ import annotations
@@ -38,6 +52,8 @@ from ..cli.eval import frame_psnr, render_image
 from ..device import resolve_device
 from ..meshing import extract_mesh, mesh_sdf_fn, write_ply
 from ..models.monosdf import init_monosdf
+from ..parallel.ddp import (barrier, broadcast_object, in_group, make_parallel_train_step,
+                            rank_generator, replicas_agree, replicate, shard_batch, world)
 from ..viz import MetricsWriter, get_plot_data, plot
 from .checkpoint import load_checkpoint, restore_state, save_checkpoint
 from .optim import make_optimizer
@@ -63,8 +79,12 @@ class Trainer:
         steps_per_call: int = 1,
         device=None,
     ):
-        if n_devices > 1:
-            raise NotImplementedError("more than one device: data parallelism is not ported yet")
+        self.rank, self.world = world()
+        self.distributed = in_group()
+        if n_devices > 1 and n_devices != self.world:
+            raise ValueError(f"n_devices={n_devices} needs a process group of {n_devices} ranks "
+                             f"(parallel.init_group; cli/train.py --n_devices spawns one), "
+                             f"not {self.world}")
         self.exp = exp
         self.train_rays = train_rays
         self.val_images = val_images or []
@@ -77,6 +97,7 @@ class Trainer:
         if resume:
             timestamp = timestamp or self._find_latest_run(exps_root, name)
         timestamp = timestamp or datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
+        timestamp = broadcast_object(timestamp)  # one run directory for every rank
         self.run_dir = os.path.join(exps_root, f"{timestamp}-{name}")
         self.ckpt_dir = os.path.join(self.run_dir, "checkpoints")
         self.plot_dir = os.path.join(self.run_dir, "plots")
@@ -84,11 +105,15 @@ class Trainer:
         os.makedirs(self.plot_dir, exist_ok=True)
 
         self.rng = np.random.default_rng(seed)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = rank_generator(seed, self.rank, self.device)
         self.model = init_monosdf(exp.model, seed=seed, device=self.device)
         self.optimizer = make_optimizer(exp.optim, self.model.named_parameters())
-        self.step_fn = make_train_step(exp.model, exp.loss, self.optimizer)
-        self.steps_per_call = max(1, int(steps_per_call))
+        self.ddp_model = None
+        if self.distributed:
+            self.step_fn = make_parallel_train_step(exp.model, exp.loss, self.optimizer)
+        else:
+            self.step_fn = make_train_step(exp.model, exp.loss, self.optimizer)
+        self.steps_per_call = 1 if self.distributed else max(1, int(steps_per_call))
 
         self.start_epoch = 0
         if resume and os.path.exists(os.path.join(self.ckpt_dir, "latest.ckpt")):
@@ -118,11 +143,16 @@ class Trainer:
             restore_state(self.model, self.optimizer, payload)
             self.start_epoch = payload["epoch"]
             print(f"loaded from {cands[-1]} (step {payload['step']}, epoch {payload['epoch']})")
+        if self.distributed:
+            # after the restore: every rank holds the same parameters and moments
+            self.ddp_model = replicate(self.model)
 
         self.iters_per_epoch = max(1, train_rays["rays_o"].shape[0] // exp.num_pixels)
-        self.metrics_log = open(os.path.join(self.run_dir, "metrics.jsonl"), "a")
-        # TensorBoard under plots/logs (reference monosdf_train.py:303-304)
-        self.writer = MetricsWriter(os.path.join(self.plot_dir, "logs"))
+        self.metrics_log = None
+        if self.rank == 0:
+            self.metrics_log = open(os.path.join(self.run_dir, "metrics.jsonl"), "a")
+        # rank 0's TensorBoard under plots/logs (reference monosdf_train.py:303-304)
+        self.writer = MetricsWriter(os.path.join(self.plot_dir, "logs"), enabled=self.rank == 0)
         self._gt_plotted = False
 
     @staticmethod
@@ -135,7 +165,8 @@ class Trainer:
 
     def close(self):
         """Close the metrics log and the writer."""
-        self.metrics_log.close()
+        if self.metrics_log is not None:
+            self.metrics_log.close()
         self.writer.close()
 
     @property
@@ -148,7 +179,9 @@ class Trainer:
         """Pixel mode (fork default): global random rays across every frame.
         Image mode (if_pixel=False, the upstream default): all rays of one
         randomly-chosen frame per step (reference scene_dataset.py:374-436).
-        On the model's device; ``indices`` (int64) with per-image codes."""
+        On the model's device; ``indices`` (int64) with per-image codes.
+        Under a group of W ranks ``num_rays`` is the global batch's, and the
+        rank gathers its contiguous num_rays / W of them."""
         tr = self.train_rays
         if self.exp.dataset.get("if_pixel", True):
             idx = self.rng.integers(0, tr["rays_o"].shape[0], size=(num_rays,))
@@ -157,6 +190,7 @@ class Trainer:
             n_frames = tr["rays_o"].shape[0] // HW
             f = int(self.rng.integers(0, n_frames))
             idx = f * HW + self.rng.permutation(HW)[:num_rays]
+        idx = shard_batch(idx, self.rank, self.world)
         on_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
         batch = {
             "rays": {k: on_dev(tr[k][idx]) for k in ("rays_o", "rays_d", "depth_scale", "pose")},
@@ -169,7 +203,7 @@ class Trainer:
     def train(self, max_iters: int | None = None, log_every: int = 50):
         exp = self.exp
         max_iters = max_iters or exp.max_total_iters
-        num_rays = exp.num_pixels
+        num_rays = exp.num_pixels * self.world
 
         it0 = self.step
         t_last = time.perf_counter()
@@ -178,12 +212,18 @@ class Trainer:
         while it < max_iters:
             # a chunk of S steps, the tail one by one, as the JAX scan path
             s_chunk = S if (max_iters - it) >= S else 1
+            log_now = ((it + s_chunk) // log_every) > (it // log_every) or it == it0
             for _ in range(s_chunk):
-                metrics = self.step_fn(self.model, self.sample_batch(num_rays),
-                                       generator=self.generator)
+                if self.ddp_model is None:
+                    metrics = self.step_fn(self.model, self.sample_batch(num_rays),
+                                           generator=self.generator)
+                else:
+                    # the mean over ranks only where the log reads it
+                    metrics = self.step_fn(self.ddp_model, self.sample_batch(num_rays),
+                                           generator=self.generator, reduce_metrics=log_now)
             prev_it, it = it, it + s_chunk
 
-            if (it // log_every) > (prev_it // log_every) or prev_it == it0:
+            if log_now:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 # failure detection: halt on divergence with a crash snapshot
                 if not np.isfinite(metrics.get("loss", 0.0)):
@@ -197,13 +237,14 @@ class Trainer:
                 self._last_log_it = it
                 t_last = time.perf_counter()
                 rec = {"iter": it, "rays_per_sec": round(rays_s, 1), **metrics}
-                print(
-                    f"[{it}/{max_iters}] loss={metrics.get('loss', 0):.4f} "
-                    f"psnr={metrics.get('psnr', 0):.2f} beta={metrics.get('beta', 0):.4f} "
-                    f"({rays_s:,.0f} rays/s)"
-                )
-                self.metrics_log.write(json.dumps(rec) + "\n")
-                self.metrics_log.flush()
+                if self.rank == 0:
+                    print(
+                        f"[{it}/{max_iters}] loss={metrics.get('loss', 0):.4f} "
+                        f"psnr={metrics.get('psnr', 0):.2f} beta={metrics.get('beta', 0):.4f} "
+                        f"({rays_s:,.0f} rays/s)"
+                    )
+                    self.metrics_log.write(json.dumps(rec) + "\n")
+                    self.metrics_log.flush()
                 tb = dict(metrics)
                 if tb.get("beta"):
                     tb["alpha"] = 1.0 / tb["beta"]
@@ -222,11 +263,21 @@ class Trainer:
             ):
                 self.plot_validation(epoch)
         self.save(max_iters // self.iters_per_epoch)
+        if self.distributed:
+            # the same update on every rank keeps the replicas equal, bit for bit
+            if not replicas_agree(self.model):
+                raise RuntimeError(f"the {self.world} ranks' parameters differ after {it} steps")
+            if self.rank == 0:
+                print(f"replicas: the {self.world} ranks hold the same parameters")
         return self.model
 
     def plot_validation(self, epoch: int, max_images: int = 1):
         """Reference run() VAL block (monosdf_train.py:318-389): mesh export
-        + rendered val dashboards (PNG, and TensorBoard where it imports)."""
+        + rendered val dashboards (PNG, and TensorBoard where it imports), on
+        rank 0 while the other ranks wait."""
+        if self.rank != 0:
+            barrier()
+            return
         try:
             self.export_mesh(path=os.path.join(self.plot_dir, f"surface_{epoch}.ply"))
         except Exception as e:
@@ -248,9 +299,13 @@ class Trainer:
             )
         self._gt_plotted = True
         self.writer.flush()
+        barrier()
 
     def save(self, epoch: int):
-        save_checkpoint(self.ckpt_dir, self.model, self.optimizer, epoch)
+        """The checkpoint of ``epoch``, written by rank 0 while the other ranks wait."""
+        if self.rank == 0:
+            save_checkpoint(self.ckpt_dir, self.model, self.optimizer, epoch)
+        barrier()
 
     # ------------------------------------------------------------------
     def render_image(self, image: dict, chunk: int | None = None) -> dict:

@@ -74,7 +74,7 @@ JAX_ONLY = {
     "MonoSDFConfig": {"if_hdr": "rendering.if_hdr",
                       "scene_bounding_sphere": "sampler.scene_bounding_sphere",
                       "fold_eikonal": None},
-    "SamplerConfig": {"merge_impl": None, "N_samples_inverse_sphere": None},
+    "SamplerConfig": {"merge_impl": None},
     "OptimConfig": {"fused": None},
 }
 

@@ -1648,3 +1648,66 @@ def test_resize_on_the_card_matches_cpu(dev, mode):
                                        resize(f, dst, mode, device="cpu"), rtol=0, atol=2e-6)
     out = resize(torch.from_numpy(f).to(dev), (11, 13), mode)
     assert out.device.type == "cuda"
+
+
+# -- data parallelism (monosdf_torch.parallel) ----------------------------------
+
+def _small_mlp_config():
+    """The small MLP model on the kernel backends (IMP, REN; 2 sampler rounds)."""
+    from monosdf_torch.models.monosdf import MonoSDFConfig
+    from monosdf_torch.ops.sampler import SamplerConfig
+
+    imp = ImplicitNetConfig(feature_vector_size=32, dims=(48,) * 4, skip_in=(2,), multires=4,
+                            inside_outside=True, bias=0.9, sdf_bounding_sphere=1.1)
+    return MonoSDFConfig(implicit=imp, rendering=REN,
+                         sampler=SamplerConfig(max_total_iters=2, machinery="pallas",
+                                               machinery_dtype="float32"),
+                         sampler_backend="pallas", diff_backend="pallas", rgb_backend="fused")
+
+
+@pytest.mark.cuda
+def test_ddp_world_size_1_over_nccl_is_the_plain_step(dev, tmp_path):
+    """init_group on a card picks NCCL; 3 DDP steps at world size 1 in turns
+    with the plain step, from the same weights, batches and generator seed:
+    the parameters bit-equal after each (NCCL's all-reduce over one rank
+    leaves the gradient as it is, the division is by 1) and the same
+    kernels launched."""
+    from monosdf_torch.data.synthetic import make_synthetic_sphere_scene
+    from monosdf_torch.losses import LossConfig
+    from monosdf_torch.models.monosdf import init_monosdf
+    from monosdf_torch.parallel import ddp
+    from monosdf_torch.train import OptimConfig, make_optimizer, make_train_step
+    from monosdf_torch.cli.train import ray_batches
+
+    cfg = _small_mlp_config()
+    batches = ray_batches(make_synthetic_sphere_scene(n_images=2, img_res=16),
+                          np.random.default_rng(0), 3, 256, dev)
+    device = ddp.init_group(0, 1, str(tmp_path), dev)
+    try:
+        assert torch.distributed.get_backend() == "nccl" and device.type == "cuda"
+        plain, model = (init_monosdf(cfg, seed=0, device=device) for _ in range(2))
+        plain_step = make_train_step(cfg, LossConfig(),
+                                     make_optimizer(OptimConfig(), plain.named_parameters()))
+        step = ddp.make_parallel_train_step(
+            cfg, LossConfig(), make_optimizer(OptimConfig(), model.named_parameters()))
+        wrapped = ddp.replicate(model)
+        g0, g1 = torch.Generator(device=device).manual_seed(0), ddp.rank_generator(0, 0, device)
+        for b in batches:
+            build.reset_launch_counts()
+            plain_step(plain, b, generator=g0)
+            launched = dict(build.launches)
+            build.reset_launch_counts()
+            m = step(wrapped, b, generator=g1)
+            assert dict(build.launches) == launched and launched["sdf_grad_bwd"] == 1
+            assert torch.isfinite(m["loss"])
+            for (n, p), q in zip(model.named_parameters(), plain.parameters()):
+                assert torch.equal(p, q), n
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_dryrun_ddp_tiny_on_one_card(dev):
+    from monosdf_torch.parallel import dryrun_ddp
+
+    assert np.isfinite(dryrun_ddp(1, tiny=True))

@@ -367,7 +367,8 @@ def test_steps_per_call_runs_and_checkpoints(tmp_path, scene):
     rows = [json.loads(l) for l in open(os.path.join(tr.run_dir, "metrics.jsonl"))]
     assert [r["iter"] for r in rows] == [4, 8, 16, 24]
     assert sorted(os.listdir(tr.ckpt_dir)) == ["2.ckpt", "4.ckpt", "6.ckpt", "latest.ckpt"]
-    with pytest.raises(NotImplementedError, match="more than one device"):
+    # more than one device needs a process group (cli/train.py --n_devices spawns one)
+    with pytest.raises(ValueError, match="process group"):
         _trainer(tmp_path, scene, _exp(), n_devices=2)
 
 
