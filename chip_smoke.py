@@ -5,6 +5,7 @@
     python3 chip_smoke.py --witness 0,1 2,3  # the trained union model's float64 witness
                                              # statistics on those views, no gate
     python3 chip_smoke.py --ddp      # build, then the data-parallel phase only
+    python3 chip_smoke.py --measure  # build, then the measurement scripts' phase only
 
 Three models: the bench's ScanNet-MLP model (bench.py), also with its
 sweeps through K1-PE (sweep_pe_in_kernel, scripts/bench_step.py --sweep_pe),
@@ -185,17 +186,36 @@ CLIs' --conf path. Phases (any failure exits non-zero):
    size (1024 rays), a finite loss, launching exactly the kernels
    config.routed_kernels names; a worker that fails or outlives
    DDP_DEADLINE_S fails the phase;
-17. print a ``render``, a ``train``, a ``render_pe``, a ``train_pe``, a
+17. the measurement scripts (measure_phase, monosdf_torch/scripts), each
+   main() in this process at MEASURE_ITERS timed iterations, launches
+   counted from 0: bench_step on the kernel path (--diff pallas --sampler
+   pallas --machinery pallas --rgb fused) launching phase 5's counts a
+   step, with --nofold (K2f and K2b twice a step; its first step's loss
+   within NOFOLD_LOSS_RTOL of the folded step's at the same weights,
+   batch and draws), with --nofused_opt (and one step of each Adam form
+   from the same state, their parameters compared, not gated), and the
+   grid model (MEASURE_GRID_FLAGS: bench_config(True)) at phase 7's; bench_breakdown
+   of the MLP and grid models, each stage's launches a call exactly (the
+   sampler: its sweeps; the forward: a chunk's; the loss's forward and
+   backward and the full step: a step's) with its ms and device busy ms;
+   profile_step over MEASURE_PROFILE_STEPS steps naming each of phase 5's
+   kernels with its launches a step; bench_multihost at world size 1 over
+   NCCL launching exactly the flagship's routed kernels;
+   bench_sampler_machinery and bench_sdf_grad_kernel at their default
+   sizes; every time finite and positive;
+18. print a ``render``, a ``train``, a ``render_pe``, a ``train_pe``, a
    ``render_grids``, a ``train_grids``,
    a ``render_codes``, a ``train_codes``, a ``render_codes_split``, a
    ``train_codes_split``, a ``scene``, a ``mesh``, the ``conf``,
    ``conf_grids`` and ``conf_hdr``, a ``quality`` line per quality run, a
    ``mesh_eval``, a ``render_traj``, a ``preprocess``, a ``nerf_radiance``,
-   a ``probes`` and a ``ddp`` JSON line, the ``kernels`` JSON line (each
+   a ``probes``, a ``ddp`` and a ``measure`` JSON line, the ``kernels``
+   JSON line (each
    kernel's launches on every main path, ``launches_conf*`` those of the
    conf runs, ``launches_quality`` those of the quality runs,
    ``launches_preprocess`` the data pipeline's, ``launches_ddp`` the DDP
-   steps' and the dryrun's), the card line
+   steps' and the dryrun's, ``launches_measure`` the measurement
+   scripts'), the card line
    (nvidia-smi's name and power limit), and last the result line.
 """
 
@@ -385,6 +405,7 @@ def device_ms(fn, kernel: str, reps: int = 10) -> float:
     the session (twice that at each retry), away from its edges. Fails
     where it recorded none of the kernel's."""
     from monosdf_torch.kernels import build
+    from monosdf_torch.scripts.profile_step import kernel_of
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     fn()
@@ -400,7 +421,7 @@ def device_ms(fn, kernel: str, reps: int = 10) -> float:
         per_call = (build.launches[kernel] - before[kernel]) / (3 * reps)
         durations: dict = {}
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA and _of(kernel, e.name):
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel_of(kernel, e.name):
                 durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
         if durations and per_call > 0:
             return per_call * sum(sum(d) / len(d) for d in durations.values()) / 1e3
@@ -1705,103 +1726,17 @@ def train_phase(dev, which: str = "mlp"):
     return info, (model, cfg, step, batches[0], gen)
 
 
-# the device functions of a kernel where they are not named <kernel>_kernel*
-# (R's sum_partials_kernel: the second launch of its earlier two-launch
-# form, and G's gather_smem_kernel, its earlier whole-table staging, for
-# the profiles of an older checkout's kernels); reduce_partials:
-# the second launch of the float32 backward kernels, counted on its own
-DEVICE_NAMES = {
-    "reduce_partials": ("reduce_partials",),
-    "probe_gather": ("gather_l2_kernel", "gather_slice_kernel", "gather_smem_kernel",
-                     "gather_ax1_kernel"),
-    "probe_scatter_rows": ("scatter_rows_",),
-    "probe_row_copy": ("row_copy_kernel", "sum_partials_kernel"),
-    "probe_strided_permute": ("strided_permute_kernel",),
-    "probe_capacity": ("capacity_kernel",),
-}
-
-
-def _of(kernel: str, name: str) -> bool:
-    """Whether the device function ``name`` belongs to ``kernel`` (a name of
-    build.SOURCES, or reduce_partials)."""
-    return any(p in name for p in DEVICE_NAMES.get(kernel, (f"{kernel}_kernel",)))
-
-
 def _profile(fn, reps: int, what: str) -> dict:
-    """Device time per kernel over ``reps`` calls of fn (torch.profiler,
-    the session's sums; ``device_ms`` reads one kernel robustly), the
-    kernels' device events and launches counted meanwhile, the wall time
-    per call by CUDA events, and the device's busy share."""
-    from monosdf_torch.kernels import build
+    """Device time per kernel over ``reps`` calls of fn, the device's busy
+    share and the rest of ``device_profile``'s reading
+    (monosdf_torch/scripts/profile_step.py, the package's profiler
+    reader); fails where it recorded no device time."""
+    from monosdf_torch.scripts.profile_step import device_profile
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for _ in range(3):  # again where the session recorded no device event
-        before = dict(build.launches)
-        with torch.profiler.profile(activities=acts) as prof:
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-        # the device's own events only: an operator's entry repeats the time
-        # of the kernels it launched, and a record_function range (DDP's
-        # forward, Adam's step) shows on the device's timeline as a span over
-        # the kernels inside it
-        averages = prof.key_averages()
-        ranges = {e.key for e in averages if e.device_type == torch.autograd.DeviceType.CPU}
-        dev_events = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.key not in ranges and not getattr(e, "is_user_annotation", False)]
-        per_name = {e.key: e.self_device_time_total / 1e3 / reps for e in dev_events}  # from us
-        busy = sum(per_name.values())
-        if busy > 0:
-            break
-    else:
-        fail(f"torch.profiler recorded no device time ({what})")
-    ms = start.elapsed_time(end) / reps
-    launched = {k: v - before[k] for k, v in build.launches.items() if v != before[k]}
-    count = {e.key: e.count for e in dev_events}
-    # the bf16 backward passes (*_kernel_ct, *_kernel_dw, *_kernel_sums)
-    # count under their kernel
-    groups = (*build.SOURCES, "reduce_partials")
-    kern = {n: sum(v for k, v in per_name.items() if _of(n, k)) for n in groups}
-    events = {n: sum(c for k, c in count.items() if _of(n, k)) for n in groups}
-    other: dict = {}  # by the first 60 characters of the kernel's name
-    for k, v in per_name.items():
-        if not any(_of(n, k) for n in groups):
-            other[k[:60]] = other.get(k[:60], 0.0) + v
-    # the tensor-core kernels' parts: K1's, K2f's (and its render chunk's
-    # CUDA-core kernel), K7f's, K3f's, K8a's and K8b's bf16 kernels, K2b's,
-    # K7b's, K3b's, K8a's and K8b's two passes and their sums
-    parts = ("sdf_mlp_kernel_tc", "sdf_grad_kernel_tc", "sdf_grad_kernel_fma", "sdf_grad_grid_kernel_tc",
-             "radiance_norm_kernel_tc", "radiance_split_kernel_tc", "radiance_mlp_kernel_tc",
-             *(f"{n}_kernel_{p}" for n in ("sdf_grad_bwd", "sdf_grad_grid_bwd", "radiance_norm_bwd",
-                                           "radiance_split_bwd", "radiance_mlp_bwd")
-               for p in ("ct", "dw", "sums")))
-    kern_parts = {n: sum(v for k, v in per_name.items() if n in k) for n in parts}
-    # the host's side: the operators' own CPU time, and the device functions
-    # launched a call (each costs the host a launch)
-    host = {}
-    for e in averages:
-        if e.device_type == torch.autograd.DeviceType.CPU:
-            host[e.key[:60]] = host.get(e.key[:60], 0.0) + e.self_cpu_time_total / 1e3 / reps
-    # the collectives' kernels (NCCL's all-reduce of a DDP step)
-    nccl = [k for k in per_name if "nccl" in k.lower()]
-    nccl_host = sum(e.count for e in averages
-                    if e.device_type == torch.autograd.DeviceType.CPU and "nccl" in e.key.lower())
-    return {"ms": ms, "device_busy_ms": busy, "busy_share": busy / ms, "kernels_ms": kern,
-            "nccl_ms": sum(per_name[k] for k in nccl),
-            "nccl_events": sum(count[k] for k in nccl) / reps,
-            "nccl_host_events": nccl_host / reps,
-            "device_events_per_call": sum(e.count for e in dev_events) / reps,
-            "host_top_ms": dict(sorted(host.items(), key=lambda kv: -kv[1])[:6]),
-            "kernel_events": {n: c for n, c in events.items() if c},
-            "launches": launched,
-            "tensor_core_parts_ms": kern_parts,
-            "other_ms": busy - sum(kern.values()),
-            "other_top_ms": dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])}
+    try:
+        return device_profile(fn, reps, what)
+    except RuntimeError as e:
+        fail(str(e))
 
 
 def profile_phase(runs, info, train_run, train_info, what: str = ""):
@@ -4017,6 +3952,154 @@ def ddp_phase(dev) -> dict:
     return line
 
 
+# the measurement scripts' phase (monosdf_torch/scripts: bench_step,
+# bench_breakdown, profile_step, bench_multihost, bench_sampler_machinery,
+# bench_sdf_grad_kernel), each called in-process at reduced --iters
+MEASURE_ITERS = 5
+MEASURE_PROFILE_STEPS = 3
+# the bench's grid model through bench_step's flags (bench_config(True))
+MEASURE_GRID_FLAGS = ("--grid", "--hash_scheme", "add", "--layout", "quad", "--scatter", "fold",
+                      "--fold_impl", "pallas", "--build_impl", "pallas", "--param_flat",
+                      "--gather_chunks", "4", "--sweep_oct", "--sweep_max_level", "6",
+                      "--sampler_iters", "4", "--rgb", "jnp")
+# --nofold's first step against the folded one at the same weights, batch and draws
+NOFOLD_LOSS_RTOL = 1e-5
+
+
+def _stage_launches(per_chunk: dict, per_step: dict, grid: bool) -> list:
+    """bench_breakdown's stages' launches a call: the sampler's sweeps (and
+    in grid mode their K6 encodes), the training forward (a chunk's
+    launches), the loss's forward and backward and the full step (a step's)."""
+    sampler = {k: per_chunk[k] for k in SWEEPS}
+    if grid:
+        sampler["hash_encode"] = per_chunk["sdf_mlp"]
+    return [_nonzero(sampler), _nonzero(per_chunk), _nonzero(per_step), _nonzero(per_step)]
+
+
+def measure_phase(dev) -> dict:
+    """Phase 17: each measurement script's ``main`` in this process on the
+    card, at reduced --iters, its launches counted from 0 and checked
+    (``launches``: the kernels over every script's run). Stage and step
+    times are printed, not gated."""
+    import tempfile
+
+    from monosdf_torch.kernels import build
+    from monosdf_torch.models.monosdf import routed_kernels
+    from monosdf_torch.parallel import dryrun
+    from monosdf_torch.scripts import (bench_breakdown, bench_multihost, bench_sampler_machinery,
+                                       bench_sdf_grad_kernel, bench_step, profile_step)
+
+    t_phase = time.perf_counter()
+    counts = dict.fromkeys(build.KERNELS, 0)
+    line = {}
+    problems = []
+
+    def run(tag, fn, argv):
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(list(argv))
+        torch.cuda.synchronize()
+        got = launch_counts()
+        for k in counts:
+            counts[k] += got[k]
+        if any(got[k] for k in ("sdf_grad_simt", "sampler_machinery_seq")):
+            problems.append(f"{tag}: an order reference was launched {_nonzero(got)}")
+        print(f"measure {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    def positive(tag, *values):
+        if not all(v is not None and math.isfinite(v) and v > 0 for v in values):
+            problems.append(f"{tag}: a time is not finite and positive: {values}")
+
+    def same_launches(tag, got, want):
+        want = {k: float(v) for k, v in want.items()}
+        if got != want:
+            problems.append(f"{tag}: launches a call {got} != {want}")
+
+    kernel = bench_step.KERNEL_FLAGS
+    iters = ("--warmup", "1", "--iters", str(MEASURE_ITERS))
+    steps = {}
+    for tag, extra, want in (("mlp", (), PER_STEP),
+                             ("mlp_nofold", ("--nofold",),
+                              {**PER_STEP, "sdf_grad": 2, "sdf_grad_bwd": 2}),
+                             ("mlp_nofused_opt", ("--nofused_opt",), PER_STEP),
+                             ("grids", MEASURE_GRID_FLAGS, PER_STEP_GRIDS)):
+        out = run(f"bench_step {tag}", bench_step.main, (*kernel, *iters, *extra))
+        same_launches(f"bench_step {tag}", out["launches_per_step"], _nonzero(want))
+        positive(f"bench_step {tag}", out["ms_per_step"], out["rays_per_s"])
+        steps[tag] = out
+    # the two Adam forms (OptimConfig.fused: multi-tensor, per-parameter) on
+    # the card: one step from the same weights, batch and draws (the CPU
+    # tests hold them bit for bit); measured, not gated
+    params = []
+    for extra in ((), ("--nofused_opt",)):
+        r = bench_step.setup(bench_step.parser().parse_args([*kernel, *extra]))
+        r.step()
+        params.append([p.detach() for p in r.model.parameters()])
+    steps["adam_forms_max_abs_diff"] = max(float((a - b).abs().max()) for a, b in zip(*params))
+    steps["adam_forms_bits_equal"] = all(bits_equal(a, b) for a, b in zip(*params))
+    print(f"one step, multi-tensor against per-parameter Adam: max abs diff "
+          f"{steps['adam_forms_max_abs_diff']:.3e}, bits equal {steps['adam_forms_bits_equal']}",
+          flush=True)
+    del params, r
+    fold, nofold = steps["mlp"]["loss_first"], steps["mlp_nofold"]["loss_first"]
+    rel = abs(nofold - fold) / abs(fold)
+    steps["nofold_first_loss_rel"] = rel
+    print(f"bench_step --nofold: first step's loss {nofold!r} against the folded {fold!r} "
+          f"(relative {rel:.3e}, bar {NOFOLD_LOSS_RTOL})", flush=True)
+    if not rel <= NOFOLD_LOSS_RTOL:
+        problems.append(f"--nofold's first loss {nofold} is {rel:.3e} from the folded {fold}")
+    line["bench_step"] = steps
+
+    line["bench_breakdown"] = {}
+    for tag, extra, per_chunk, per_step in (("mlp", (), PER_CHUNK, PER_STEP),
+                                            ("grids", MEASURE_GRID_FLAGS, PER_CHUNK_GRIDS,
+                                             PER_STEP_GRIDS)):
+        stages = run(f"bench_breakdown {tag}", bench_breakdown.main,
+                     (*kernel, "--iters", str(MEASURE_ITERS), *extra))
+        for st, want in zip(stages, _stage_launches(per_chunk, per_step, tag == "grids")):
+            same_launches(f"bench_breakdown {tag} {st['stage']}", st["launches"], want)
+            positive(f"bench_breakdown {tag} {st['stage']}", st["ms"], st["busy_ms"])
+        line["bench_breakdown"][tag] = stages
+
+    with tempfile.TemporaryDirectory(prefix="profile-step-") as out_dir:
+        prof = run("profile_step", profile_step.main,
+                   ("--steps", str(MEASURE_PROFILE_STEPS), "--out", out_dir))
+        trace_bytes = os.path.getsize(prof["trace"])
+    prof["trace_bytes"] = trace_bytes
+    want = _nonzero(PER_STEP)
+    same_launches("profile_step", prof["launches_per_step"], want)
+    missing = [k for k in want if not prof["kernel_events_per_step"].get(build.SOURCE_OF[k])]
+    if missing:
+        problems.append(f"profile_step: no device event of {missing}")
+    positive("profile_step", prof["ms_per_step"], prof["device_busy_ms"])
+    line["profile_step"] = prof
+
+    mh = run("bench_multihost", bench_multihost.main,
+             ("--n_devices", "1", "--iters", str(MEASURE_ITERS)))  # the JAX script's 2 warm-ups
+    routed = set(routed_kernels(dryrun.flagship_config()))
+    if set(mh["launches_per_step"]) != routed or mh["collective"] != "nccl":
+        problems.append(f"bench_multihost: launches {mh['launches_per_step']} over "
+                        f"{mh['collective']}, not the routed kernels {sorted(routed)} over nccl")
+    positive("bench_multihost", mh["ms_per_step"], mh["rays_per_sec"])
+    line["bench_multihost"] = mh
+
+    sm = run("bench_sampler_machinery", bench_sampler_machinery.main, ())
+    positive("bench_sampler_machinery", *(r["ms"] for r in sm))
+    line["bench_sampler_machinery"] = sm
+    k2 = run("bench_sdf_grad_kernel", bench_sdf_grad_kernel.main,
+             ("--iters", str(MEASURE_ITERS)))
+    positive("bench_sdf_grad_kernel", k2["fwd_ms"], k2["fwd_bwd_ms"])
+    line["bench_sdf_grad_kernel"] = k2
+
+    line["launches"] = counts
+    line["s"] = time.perf_counter() - t_phase
+    print(f"measure phase: {line['s']:.1f} s", flush=True)
+    if problems:
+        fail("measure phase: " + "; ".join(problems))
+    return line
+
+
 def main(argv):
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -4056,6 +4139,9 @@ def main(argv):
 
     if "--ddp" in argv:
         print(json.dumps({"ddp": ddp_phase(dev)}))
+        return
+    if "--measure" in argv:
+        print(json.dumps({"measure": measure_phase(dev)}))
         return
     if "--witness" in argv:
         groups = [tuple(int(v) for v in g.split(",")) for g in argv[argv.index("--witness") + 1:]]
@@ -4102,6 +4188,7 @@ def main(argv):
     lines["nerf_radiance"] = nerf_phase(dev)
     lines["probes"] = probes_phase(dev, results)
     lines["ddp"] = ddp_phase(dev)
+    lines["measure"] = measure_phase(dev)
     for name in bulk:
         results[name]["sass_ublkcp"] = bulk[name]
     results["probe_capacity"]["sass_ublkcp_g_s"] = bulk_store["probe_capacity"]

@@ -301,6 +301,19 @@ def sdf_feat_grad_pallas(params: ImplicitNet, cfg: ImplicitNetConfig, x: torch.T
     return sdf.reshape(*prefix, 1), feat.reshape(*prefix, -1), grad.reshape(*prefix, 3)
 
 
+def sdf_gradient_pallas(params: ImplicitNet, cfg: ImplicitNetConfig, x: torch.Tensor,
+                        dtype=None) -> torch.Tensor:
+    """sdf_gradient (UNclamped) through a K2 call of its own: the eikonal
+    points' gradient when they do not fold into the main call
+    (``MonoSDFConfig.fold_eikonal=False``). MLP mode only; under grad K2b
+    gives the parameter gradients."""
+    prefix = x.shape[:-1]
+    ws, bs = effective_linear_weights(params)
+    _, _, grad = sdf_mlp_with_grad(ws, bs, x.reshape(-1, 3).contiguous(), cfg.multires,
+                                   tuple(cfg.skip_in), dtype)
+    return grad.reshape(*prefix, 3)
+
+
 # ---------------------------------------------------------------------------
 # Rendering (radiance) network
 # ---------------------------------------------------------------------------

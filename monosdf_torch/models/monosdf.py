@@ -17,7 +17,8 @@ Grid mode (``implicit.use_grid``): the sweeps read the first
 training step reads one copy of the table at its ``table_dtype``
 (``fields.grid_table``, the JAX package's ``with_table_cache``); in training
 the eikonal points join the main points in one differentiated evaluation
-(no clamp in grid mode, so nothing tells them apart), on both backends.
+(no clamp in grid mode, so nothing tells them apart), on both backends,
+unless ``fold_eikonal`` is off.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from .fields import (
     sdf_feat_grad_pallas,
     sdf_feat_grad_pallas_grid,
     sdf_gradient,
+    sdf_gradient_pallas,
     sdf_value,
     sdf_value_pallas,
     sdf_value_pallas_grid,
@@ -84,6 +86,14 @@ class MonoSDFConfig:
     # (K8a on the raw gradient, idr mode, MLP and grid mode alike; the
     # normals for the loss are normalised outside)
     rgb_backend: str = "jnp"
+    # training: the eikonal points join the main points' differentiated
+    # evaluation (on the K2 path one K2f and one K2b launch serve both, the
+    # eikonal rows unclamped by ``clamp_rows``; in grid mode one encode and
+    # one trunk call). False: their gradient is a call of its own, through
+    # K2 unclamped on the K2 path (``fields.sdf_gradient_pallas``: two K2f
+    # and two K2b launches a step), else the plain ``fields.sdf_gradient``.
+    # The same values either way (the JAX package's layout knob)
+    fold_eikonal: bool = True
 
     def __post_init__(self):
         for field, ok in (("sampler_backend", ("jnp", "pallas")),
@@ -234,11 +244,11 @@ def render_samples(params: MonoSDF, cfg: MonoSDFConfig, rays: dict, z_vals: torc
 
     Without ``eik_points`` it is the eval render, without grad. With them
     (training: (4R, 3), see ``eikonal_points``) it keeps the graph and adds
-    ``grad_theta``/``grad_theta_nei``; on the K2 path the eikonal points go
-    through the same K2 call as the main points, unclamped (``clamp_rows``:
-    the JAX package's ``fold_eikonal=True``, its default and the bench's),
-    so one K2f and one K2b launch serve both. In grid mode they join the
-    main points on both backends. ``table``: grid mode's read table
+    ``grad_theta``/``grad_theta_nei``; with ``cfg.fold_eikonal`` (the
+    default and the bench's) on the K2 path the eikonal points go through
+    the same K2 call as the main points, unclamped (``clamp_rows``), so one
+    K2f and one K2b launch serve both, and in grid mode they join the main
+    points on both backends. ``table``: grid mode's read table
     (``fields.grid_table``), made here if None."""
     if eik_points is None:
         with torch.no_grad():
@@ -289,36 +299,31 @@ def _render_samples(params, cfg, rays, z_vals, image_code, eik_points, table) ->
 
     main_dtype = _dtype(cfg.compute_dtype) if cfg.mixed_precision else None
     use_pallas_diff = cfg.diff_backend == "pallas" and not imp_cfg.use_grid
-    if imp_cfg.use_grid:
-        pts_in = torch.cat([points_flat, eik_points], dim=0) if training else points_flat
-        if cfg.diff_backend == "pallas":
-            table = grid_table(params.implicit, imp_cfg) if table is None else table
-            sdf, feature_vectors, gradients = sdf_feat_grad_pallas_grid(
-                params.implicit, imp_cfg, pts_in, dtype=main_dtype, table=table)
-        else:
-            sdf, feature_vectors, gradients = sdf_feat_grad(params.implicit, imp_cfg, pts_in,
-                                                            dtype=main_dtype)
-        if training:
-            grad_theta = gradients[n_main:]
-            sdf = sdf[:n_main]
-            feature_vectors = feature_vectors[:n_main]
-            gradients = gradients[:n_main]
+    # the eikonal points fold into the main evaluation on the K2 path and in
+    # grid mode; the plain MLP path clamps the main points, so never there
+    fold = training and cfg.fold_eikonal and (use_pallas_diff or imp_cfg.use_grid)
+    pts_in = torch.cat([points_flat, eik_points], dim=0) if fold else points_flat
+    if imp_cfg.use_grid and cfg.diff_backend == "pallas":
+        table = grid_table(params.implicit, imp_cfg) if table is None else table
+        sdf, feature_vectors, gradients = sdf_feat_grad_pallas_grid(
+            params.implicit, imp_cfg, pts_in, dtype=main_dtype, table=table)
     elif use_pallas_diff:
-        pts_in = torch.cat([points_flat, eik_points], dim=0) if training else points_flat
         sdf, feature_vectors, gradients = sdf_feat_grad_pallas(
             params.implicit, imp_cfg, pts_in, dtype=main_dtype,
-            clamp_rows=n_main if training else -1,
+            clamp_rows=n_main if fold else -1,
         )
-        if training:
-            grad_theta = gradients[n_main:]
-            sdf = sdf[:n_main]
-            feature_vectors = feature_vectors[:n_main]
-            gradients = gradients[:n_main]
     else:
-        sdf, feature_vectors, gradients = sdf_feat_grad(params.implicit, imp_cfg, points_flat,
+        sdf, feature_vectors, gradients = sdf_feat_grad(params.implicit, imp_cfg, pts_in,
                                                         dtype=main_dtype)
-        if training:
-            grad_theta = sdf_gradient(params.implicit, imp_cfg, eik_points, dtype=main_dtype)
+    if fold:
+        grad_theta = gradients[n_main:]
+        sdf = sdf[:n_main]
+        feature_vectors = feature_vectors[:n_main]
+        gradients = gradients[:n_main]
+    elif training and use_pallas_diff:
+        grad_theta = sdf_gradient_pallas(params.implicit, imp_cfg, eik_points, dtype=main_dtype)
+    elif training:
+        grad_theta = sdf_gradient(params.implicit, imp_cfg, eik_points, dtype=main_dtype)
 
     code_flat = None
     if image_code is not None:

@@ -15,7 +15,8 @@ parameters replicated, each rank with its own rays, ``indices`` and draws,
 and prints ``dryrun_ddp(N): OK loss=...``. Inside a process group of N
 ranks each rank runs its part; else, on the CPU, it spawns N gloo workers
 (as JAX provisions N virtual CPU devices), and on the card one rank per
-card (NCCL), in this process at N = 1.
+card (NCCL), in this process at N = 1. ``flagship_program`` builds one
+rank's part of it (``scripts/bench_multihost.py`` times its steps).
 
     python -m monosdf_torch.parallel.dryrun [--n 1] [--tiny] [--device cpu]
 """
@@ -76,16 +77,22 @@ def flagship_config(tiny: bool = False) -> MonoSDFConfig:
     )
 
 
-def _dryrun_rank(rank: int, world_size: int, tiny: bool, device, rays_per_rank: int) -> float:
-    """This rank's part of the step, inside the group; the loss (mean over ranks)."""
+def flagship_program(rank: int, world_size: int, tiny: bool, device, rays_per_rank: int,
+                     decay_steps: int = 1000, img_res: int = 32):
+    """This rank's part of the flagship program, inside the group: (the
+    parallel step, the replicated model, the rank's batch on ``device``,
+    its generator). The global batch of ``rays_per_rank * world_size`` rays
+    of the synthetic sphere (2 views of ``img_res``) is drawn from
+    ``default_rng(0)`` and sharded; Adam in grid mode (factor 20) decays
+    over ``decay_steps``."""
     from ..data.synthetic import make_synthetic_sphere_scene, sample_ray_batch
 
     cfg = flagship_config(tiny)
     model = init_monosdf(cfg, seed=0, device=device)
-    opt = make_optimizer(OptimConfig(grid_mode=True, lr_factor_for_grid=20.0, decay_steps=1000),
-                         model.named_parameters())
+    opt = make_optimizer(OptimConfig(grid_mode=True, lr_factor_for_grid=20.0,
+                                     decay_steps=decay_steps), model.named_parameters())
     ddp_model = replicate(model)
-    scene = make_synthetic_sphere_scene(n_images=2, img_res=32)
+    scene = make_synthetic_sphere_scene(n_images=2, img_res=img_res)
     batch = sample_ray_batch(scene, np.random.default_rng(0), rays_per_rank * world_size)
     if not cfg.rendering.per_image_code:
         batch.pop("indices")  # the tiny model has no appearance codes
@@ -96,7 +103,13 @@ def _dryrun_rank(rank: int, world_size: int, tiny: bool, device, rays_per_rank: 
     local = {k: ({kk: to_dev(vv) for kk, vv in v.items()} if isinstance(v, dict) else to_dev(v))
              for k, v in local.items()}
     step = make_parallel_train_step(cfg, LossConfig(), opt)
-    metrics = step(ddp_model, local, generator=rank_generator(0, rank, device))
+    return step, ddp_model, local, rank_generator(0, rank, device)
+
+
+def _dryrun_rank(rank: int, world_size: int, tiny: bool, device, rays_per_rank: int) -> float:
+    """This rank's part of the step, inside the group; the loss (mean over ranks)."""
+    step, ddp_model, local, gen = flagship_program(rank, world_size, tiny, device, rays_per_rank)
+    metrics = step(ddp_model, local, generator=gen)
     loss = float(metrics["loss"])
     if not math.isfinite(loss):
         raise FloatingPointError(f"dryrun_ddp({world_size}): non-finite loss {loss}")

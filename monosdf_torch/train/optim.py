@@ -10,6 +10,15 @@ Grid mode has three parameter groups, ``encoding`` (the hash table) at lr *
 per-leaf lr scale. The learning rate at step t (from 0) is lr *
 decay_rate^(t / decay_steps) in every group.
 
+``fused`` (the JAX package's one raveled Adam against per-leaf Adam) picks
+how torch's Adam runs the same update: True (the default) its multi-tensor
+form (``foreach=True``: each step a handful of ``_foreach_*`` launches over
+every parameter at once), False its per-parameter loop (``foreach=False``:
+the same ops once per parameter). On the CPU both give the same values,
+bit for bit (``tests/test_torch_train.py``); ``chip_smoke.py``'s phase 17
+compares the two on the card. Neither is torch's single-kernel
+``fused=True`` Adam, a library kernel.
+
 ``OptimConfig``'s defaults are the JAX dataclass's (factor 20, decay 0.25
 over 150,000 steps), which ``bench.py`` and the hard-wired models of
 ``cli/train.py`` train with; a conf gets the schema's (factor 1.0 and decay
@@ -31,6 +40,7 @@ class OptimConfig:
     sched_decay_rate: float = 0.25
     decay_steps: int = 150_000
     grid_mode: bool = False  # reference Grid_MLP flag
+    fused: bool = True  # multi-tensor Adam (foreach); False: one parameter at a time
 
 
 class Optimizer(NamedTuple):
@@ -62,9 +72,9 @@ def make_optimizer(cfg: OptimConfig, named_params) -> Optimizer:
             groups[grid_group(name)].append(p)
         adam = torch.optim.Adam([{"params": ps, "lr": lr * factor[g]}
                                  for g, ps in groups.items() if ps],
-                                lr=lr, betas=(0.9, 0.99), eps=1e-15)
+                                lr=lr, betas=(0.9, 0.99), eps=1e-15, foreach=cfg.fused)
     else:
         adam = torch.optim.Adam([p for _, p in named_params], lr=lr, betas=(0.9, 0.999),
-                                eps=1e-8)
+                                eps=1e-8, foreach=cfg.fused)
     gamma = cfg.sched_decay_rate ** (1.0 / cfg.decay_steps)
     return Optimizer(adam, torch.optim.lr_scheduler.LambdaLR(adam, lambda t: gamma**t))

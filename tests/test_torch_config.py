@@ -72,10 +72,8 @@ OVERLAYS = {
 # carries its value (None: a TPU layout knob with no value of its own)
 JAX_ONLY = {
     "MonoSDFConfig": {"if_hdr": "rendering.if_hdr",
-                      "scene_bounding_sphere": "sampler.scene_bounding_sphere",
-                      "fold_eikonal": None},
+                      "scene_bounding_sphere": "sampler.scene_bounding_sphere"},
     "SamplerConfig": {"merge_impl": None},
-    "OptimConfig": {"fused": None},
 }
 
 
@@ -355,7 +353,8 @@ def test_hdr_conf_eval_render_matches_jax():
     assert tcfg.rendering.spec and tcfg.rendering.if_hdr and tc.routed_kernels(tcfg) == ()
     jcfg = dataclasses.replace(jcfg, sampler=dataclasses.replace(jcfg.sampler, max_total_iters=2))
     tcfg = dataclasses.replace(tcfg, sampler=dataclasses.replace(tcfg.sampler, max_total_iters=2))
-    jparams = jm.init_monosdf(jax.random.PRNGKey(0), jcfg)
+    # the JAX init jitted (op by op it compiles each primitive: seconds)
+    jparams = jit_ref(lambda k: jm.init_monosdf(k, jcfg))(jax.random.PRNGKey(0))
     rng = np.random.default_rng(5)
     tree = jax.tree_util.tree_map(
         lambda a: (np.asarray(a) + 0.02 * rng.standard_normal(np.shape(a))).astype(np.float32),

@@ -236,15 +236,23 @@ def _batch(seed):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_value_and_grad():
+def _jax_value_and_grad(fold: bool = True):
     """make_train_step's loss_fn (monosdf_tpu/train/step.py:42-53) of the
-    kernel-backend grid config under jax.value_and_grad, jitted once. Its
-    sampler runs the jnp sweeps and machinery, which compute K1's and K4's
-    values (tests/test_torch_kernels.py and the render above hold the
-    port's against the JAX kernels) and compile in a third less time."""
+    kernel-backend grid config (``fold``: its fold_eikonal) under
+    jax.value_and_grad, jitted once. Its sampler runs the jnp sweeps and
+    machinery, which compute K1's and K4's values
+    (tests/test_torch_kernels.py and the render above hold the port's
+    against the JAX kernels) and compile in a third less time."""
     jcfg = _setup(True)[0]
-    jcfg = dataclasses.replace(jcfg, sampler_backend="jnp",
+    jcfg = dataclasses.replace(jcfg, sampler_backend="jnp", fold_eikonal=fold,
                                sampler=dataclasses.replace(jcfg.sampler, machinery="jnp"))
+    if not fold:
+        # the XLA table layout (the layout knobs change no value; float32
+        # table): the eikonal points' plain encode compiles without the
+        # Pallas fold in interpret mode
+        grid = dataclasses.replace(jcfg.implicit.grid, layout="rows", scatter_impl="flat",
+                                   fold_impl="xla", build_impl="xla")
+        jcfg = dataclasses.replace(jcfg, implicit=dataclasses.replace(jcfg.implicit, grid=grid))
 
     def loss_fn(params, batch, key):
         out = jm.render_rays(params, jcfg, batch["rays"], key, training=True)
@@ -270,19 +278,48 @@ def _torch_batch(batch):
 # whose gradient is rounding noise around 0 (|g| < 1e-6 of the tensor's
 # largest) may move by up to lr either way, and is held to 2 lr.
 def test_grid_training_step_matches_jax():
+    _grid_step_check(fold=True)
+
+
+# fold_eikonal=False: the eikonal points' gradient by the plain forward-mode
+# gradient (no K6/K7), the main points alone through the kernel path, in
+# both packages, at the bars above; and the port's loss and gradients
+# against its folded step's at the same draws, at 1e-6 of each tensor's
+# largest entry (the same function, summed in another order)
+def test_grid_training_step_without_fold_matches_jax():
+    _grid_step_check(fold=False)
+
+
+def _grid_step_check(fold: bool):
     jcfg, tcfg, jparams, _, tree = _setup(True)
+    tcfg = dataclasses.replace(tcfg, fold_eikonal=fold)
     batch = _batch(2)
     key = jax.random.PRNGKey(7)
-    (_, mj), gj = _jax_value_and_grad()(jparams, jax.tree_util.tree_map(jnp.asarray, batch), key)
+    (_, mj), gj = _jax_value_and_grad(fold)(jparams, jax.tree_util.tree_map(jnp.asarray, batch),
+                                            key)
     flat = lambda tr: {k.replace("/", "."): v for k, v in
                        flatten_tree(jax.tree_util.tree_map(np.asarray, tr)).items()}
     gjf, p0 = flat(gj), flat(jparams)
 
+    draws = torch_draws(jax_draws(key, 8, jcfg))
+    if not fold:
+        grads = []
+        for cfg in (tcfg, dataclasses.replace(tcfg, fold_eikonal=True)):
+            model = load_jax_params(tm.init_monosdf(cfg, device="cpu"), tree)
+            out = tm.render_rays(model, cfg, _torch_batch(batch)["rays"], training=True,
+                                 draws=draws)
+            loss = tl.monosdf_loss(tl.LossConfig(), out, _torch_batch(batch)["gt"])["loss"]
+            loss.backward()
+            grads.append((loss.item(), {n: p.grad for n, p in model.named_parameters()}))
+        (l_n, g_n), (l_f, g_f) = grads
+        assert l_n == pytest.approx(l_f, rel=1e-6)
+        for n in g_n:
+            assert float((g_n[n] - g_f[n]).abs().max()) <= 1e-6 * float(g_f[n].abs().max()), n
     model = load_jax_params(tm.init_monosdf(tcfg, device="cpu"), tree)
     step = make_train_step(tcfg, tl.LossConfig(),
                            make_optimizer(OptimConfig(grid_mode=True), model.named_parameters()))
     before = dict(build.launches)
-    mt = step(model, _torch_batch(batch), draws=torch_draws(jax_draws(key, 8, jcfg)))
+    mt = step(model, _torch_batch(batch), draws=draws)
     assert build.launches == before
     for k in ("loss", "rgb_loss", "eikonal_loss", "normal_l1", "normal_cos", "depth_loss"):
         np.testing.assert_allclose(mt[k].item(), float(mj[k]), atol=1e-6,

@@ -1,7 +1,8 @@
 """The port's import and device guards: ``monosdf_torch`` (its bench
 ``monosdf_torch.bench``, data layer, meshing, native marcher, metrics,
 config, trainer, checkpoints, viz, mesh benchmark suites, trajectory
-renderer, data pipeline, tools, scripts and data parallelism included) and ``chip_smoke.py`` import
+renderer, data pipeline, tools, scripts, data parallelism and measurement scripts included) and
+``chip_smoke.py`` import
 neither JAX nor the JAX package, nor cv2, PIL or matplotlib (the port depends on
 none of them), and an entry point
 needs a CUDA device unless the caller asks for the CPU. This file imports no
@@ -43,6 +44,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import monosdf_torch.tools.transfer, monosdf_torch.scripts.extract_all_meshes\n"
         "import monosdf_torch.scripts.witness\n"
         "import monosdf_torch.parallel, monosdf_torch.parallel.ddp, monosdf_torch.parallel.dryrun\n"
+        "import monosdf_torch.scripts.bench_step, monosdf_torch.scripts.bench_breakdown\n"
+        "import monosdf_torch.scripts.profile_step, monosdf_torch.scripts.bench_multihost\n"
+        "import monosdf_torch.scripts.bench_sampler_machinery\n"
+        "import monosdf_torch.scripts.bench_sdf_grad_kernel\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'monosdf_tpu', 'cv2', 'PIL', 'matplotlib')]\n"
         "assert not bad, bad\n"

@@ -11,6 +11,7 @@ Pallas kernels in interpret mode and the port each kernel's plain version
 The sampler runs 2 of its 5 iterations, as in tests/test_torch_render.py.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -72,7 +73,12 @@ def _flat_jax(tree) -> dict:
 # code model (codes of 8 for up to 4 frames, white background) with its radiance
 # through K3 ('fused', on the kernel backends, as the union model
 # cli/eval.py union_codes_config at this test's size) and through K8a
-# ('pallas', on the plain sampler and SDF path: K8a does not depend on K2)
+# ('pallas', on the plain sampler and SDF path: K8a does not depend on K2);
+# the kernel backends with the eikonal points' gradient in a K2 call of its
+# own (fold_eikonal=False; its JAX reference's sampler on the jnp sweeps and
+# machinery, ``jax_sampler``, which compute K1's and K4's values and
+# compile in less time, as tests/test_torch_grid.py's step), and with
+# per-leaf Adam in both packages (``optim``: OptimConfig fields, fused=False)
 CASES = {
     "pallas": dict(kernels=True),
     "jnp": dict(kernels=False),
@@ -80,6 +86,8 @@ CASES = {
                         rendering=dict(per_image_code=True, code_dim=8, max_images=4)),
     "codes-pallas": dict(kernels=False, white_bkgd=True, rgb_backend="pallas",
                          rendering=dict(per_image_code=True, code_dim=8, max_images=4)),
+    "pallas-nofold": dict(kernels=True, fold_eikonal=False, jax_sampler="jnp"),
+    "pallas-perleaf": dict(kernels=True, optim=dict(fused=False)),
 }
 
 
@@ -87,7 +95,12 @@ CASES = {
 def _setup(case: str):
     """(JAX config, port config, JAX params, parameter tree) of a case of CASES."""
     kw = dict(CASES[case])
+    kw.pop("optim", None)
+    jax_sampler = kw.pop("jax_sampler", None)
     jcfg, tcfg = configs(kw.pop("kernels"), sampler=ITERS, **kw)
+    if jax_sampler:
+        jcfg = dataclasses.replace(jcfg, sampler_backend=jax_sampler, sampler=dataclasses.replace(
+            jcfg.sampler, machinery=jax_sampler))
     jparams, _, tree = both_models(jcfg, tcfg)
     return jcfg, tcfg, jparams, tree
 
@@ -223,12 +236,15 @@ def test_adam_and_lr_schedule_match_optax_over_three_steps():
 
 # -- the training step ------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
 def _jax_value_and_grad(case):
     """make_train_step's loss_fn (monosdf_tpu/train/step.py:42-53) under
-    jax.value_and_grad, jitted once for the tests that use it; the step
-    count, which the loss reads, is an argument."""
-    jcfg = _setup(case)[0]
+    jax.value_and_grad, jitted once a config for the tests that use it; the
+    step count, which the loss reads, is an argument."""
+    return _jax_value_and_grad_of(_setup(case)[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_value_and_grad_of(jcfg):
 
     def loss_fn(params, batch, key, step):
         image_code = None
@@ -247,6 +263,17 @@ def _jax_value_and_grad(case):
 # the JAX optimizer of the step tests, its update and apply jitted once
 JOPT = jt.make_optimizer(jt.OptimConfig())
 _jinit, _jupdate, _japply = jit_ref(JOPT.init), jit_ref(JOPT.update), jit_ref(optax.apply_updates)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_optimizer(case):
+    """(init, update) of the JAX optimizer of a case (its ``optim``
+    fields), jitted once."""
+    optim = CASES[case].get("optim")
+    if not optim:
+        return _jinit, _jupdate
+    opt = jt.make_optimizer(jt.OptimConfig(**optim))
+    return jit_ref(opt.init), jit_ref(opt.update)
 
 
 def _jax_steps(case, jparams, batches, keys):
@@ -274,14 +301,21 @@ def _jax_steps(case, jparams, batches, keys):
 # step moves a parameter by lr g / (|g| + 1e-8): gradients that agree to
 # float32 rounding give the same move unless |g| is near 1e-8).
 # The code cases also hold the gradient of every embeddings row (only the
-# batch's frames' rows are nonzero) and the white background.
+# batch's frames' rows are nonzero) and the white background. The
+# fold_eikonal=False case also holds the port's loss and gradients against
+# its own fold_eikonal=True step at the same draws (1e-6 of each tensor's
+# largest entry: the same function, the eikonal rows' sums in another
+# order); the per-leaf Adam case the port's parameters against its
+# multi-tensor Adam's (fused=True), bit for bit.
 @pytest.mark.parametrize("case", list(CASES))
 def test_training_step_matches_jax(case):
     jcfg, tcfg, jparams, tree = _setup(case)
+    optim = CASES[case].get("optim", {})
+    jinit, jupdate = _jax_optimizer(case)
     batch = _batch(seed=2)
     key = jax.random.PRNGKey(7)
     (_, mj), gj = _jax_value_and_grad(case)(jparams, _to_jax(batch), key, jnp.int32(0))
-    upd, _ = _jupdate(gj, _jinit(jparams), jparams)
+    upd, _ = jupdate(gj, jinit(jparams), jparams)
     pj = _flat_jax(_japply(jparams, upd))
 
     draws = torch_draws(jax_draws(key, N_RAYS, jcfg))
@@ -290,7 +324,8 @@ def test_training_step_matches_jax(case):
     code = model.rendering.embeddings[tb["indices"]] if tcfg.rendering.per_image_code else None
     out = tm.render_rays(model, tcfg, tb["rays"], training=True, image_code=code, draws=draws)
     assert out["grad_theta"].shape == out["grad_theta_nei"].shape == (2 * N_RAYS, 3)
-    tl.monosdf_loss(tl.LossConfig(), out, tb["gt"], 0)["loss"].backward()
+    loss_t = tl.monosdf_loss(tl.LossConfig(), out, tb["gt"], 0)["loss"]
+    loss_t.backward()
     grads, gjf = _grads_np(model), _flat_jax(gj)
     assert grads.keys() == gjf.keys()
     if tcfg.rendering.per_image_code:
@@ -298,17 +333,34 @@ def test_training_step_matches_jax(case):
         assert len(seen) > 1 and np.abs(grads["rendering.embeddings"][seen]).max() > 0
     for k in grads:
         np.testing.assert_allclose(grads[k], gjf[k], atol=5e-4, rtol=2e-3, err_msg=k)
+    if not tcfg.fold_eikonal:
+        folded = dataclasses.replace(tcfg, fold_eikonal=True)
+        model = _model(folded, tree)
+        out_f = tm.render_rays(model, folded, tb["rays"], training=True, draws=draws)
+        loss_f = tl.monosdf_loss(tl.LossConfig(), out_f, tb["gt"], 0)["loss"]
+        loss_f.backward()
+        assert loss_f.item() == pytest.approx(loss_t.item(), rel=1e-6)
+        for n, p in model.named_parameters():
+            scale = np.abs(grads[n]).max()
+            assert np.abs(p.grad.numpy() - grads[n]).max() <= 1e-6 * scale, n
 
-    model = _model(tcfg, tree)
-    step = make_train_step(tcfg, tl.LossConfig(), make_optimizer(OptimConfig(),
-                                                                  model.named_parameters()))
-    mt = step(model, tb, draws=draws)
+    def stepped(ocfg):
+        model = _model(tcfg, tree)
+        step = make_train_step(tcfg, tl.LossConfig(),
+                               make_optimizer(ocfg, model.named_parameters()))
+        return model, step(model, tb, draws=draws)
+
+    model, mt = stepped(OptimConfig(**optim))
     for k in ("loss", "rgb_loss", "eikonal_loss", "smooth_loss", "normal_l1", "normal_cos",
               "psnr", "depth_loss"):
         np.testing.assert_allclose(mt[k].item(), float(mj[k]), atol=1e-6,
                                    rtol=1e-4 if k == "depth_loss" else 1e-5, err_msg=k)
     for n, p in model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), pj[n], atol=5e-6, rtol=0, err_msg=n)
+    if optim:
+        fused = dict(stepped(OptimConfig(**{**optim, "fused": True}))[0].named_parameters())
+        for n, p in model.named_parameters():
+            assert torch.equal(p, fused[n]), n
 
 
 def test_three_step_loss_trajectory_matches_jax():

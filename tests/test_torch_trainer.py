@@ -108,9 +108,13 @@ def jax_runs(scene, tmp_path_factory):
             tr = JTrainer(jc.build_configs(conf), scene,
                           exps_root=str(tmp_path_factory.mktemp(mode)), seed=0,
                           timestamp="20260101-000000")
-        # the trainer's own step, compiled with the references' options
+        # the trainer's own step, compiled with the references' options;
+        # the initial state's arrays made strongly typed, as a step returns
+        # them (JAX's init leaves a weakly typed bias, which would trace
+        # and compile the step a second time at step 2; the values stay)
         tr.step_fn = jit_ref(make_jax_step(tr.exp.model, tr.exp.loss, tr.optimizer),
                              donate_argnums=(0,))
+        tr.state = jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a)), tr.state)
         tr.train(log_every=10)
         runs[mode] = (tr, conf)
     return runs
